@@ -8,11 +8,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
 1. Build every CUDA source under ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per file, in parallel) and print the card's name and power
    limit.
-2. Hold each kernel bit-exact against its plain PyTorch version on the
-   card: 8/16/32-bit plans with values >= 2^31, record counts not a
-   multiple of 32, word counts not a power of two, 1-3 shards, every
-   index boundary (chunk values 0 and 2^k - 1, the always-true -1),
-   ragged per-column plans, 1-3 compound terms.
+2. Hold each kernel against its plain PyTorch version on the card
+   (bit-exact; ``leaf_gather`` within 1e-4, another summation order):
+   8/16/32-bit plans with values >= 2^31, record counts not a multiple
+   of 32, word counts not a power of two, 1-3 shards, every index
+   boundary (chunk values 0 and 2^k - 1, the always-true -1), ragged
+   per-column plans, 1-3 compound terms, scalars 0, 2^n - 1, >= 2^31
+   and with bits above ``n_bits``, leaf addresses -1 and >= L; and the
+   comparison front-ends against NumPy.
 3. Table path at full width: ``Table.generate(2**25, 32, num_features=8)``
    (33.5M records, 2 shards, 8 chunks of 4 bits: an 8.6 GB LUT) through
    ``PudSession.query`` -- Q1-Q5 and two ``Compound`` shapes, each equal
@@ -21,7 +24,15 @@ Phases (any failure exits non-zero; none is caught and passed over):
    ``PudSession.predict`` on 2^16 instances; leaf addresses exact,
    predictions bit-equal to ``assemble_leaves`` over the reference
    addresses.
-5. Time each kernel, its plain version and its bound at the main path's
+5. Kernel front-ends at full width, on phase 3's column 0 and phase 4's
+   forest: ``clutch_compare`` and ``bitserial_compare`` at 8/16/32 bits
+   (equal words), ``clutch_compare_banked`` over two banks with a -1
+   bank, ``range_count`` for Q1 (count equal to the NumPy reference and
+   to phase 3's Q1 bitmap), ``gbdt_leaf_sum`` over phase 4's leaf
+   addresses (within 1e-3 of ``assemble_leaves``, two launches
+   bit-equal).
+6. Time each kernel, its plain version, its bound and, where one
+   PyTorch call computes the same function, that call, at the paths'
    shapes; print the ``kernels`` JSON line and, last, the ok line.
 
 Launch counts are set to 0 just before each path runs and read just
@@ -62,7 +73,28 @@ KERNEL_META = {
     "gbdt_leafbits_banked": (
         "src/repro_torch/kernels/csrc/fused_query.cu",
         "src/repro/kernels/fused_query.py:323"),
+    "clutch_merge": (
+        "src/repro_torch/kernels/csrc/clutch_merge.cu",
+        "src/repro/kernels/clutch_merge.py:36"),
+    "clutch_merge_banked": (
+        "src/repro_torch/kernels/csrc/clutch_merge.cu",
+        "src/repro/kernels/clutch_merge.py:74"),
+    "fused_range_count": (
+        "src/repro_torch/kernels/csrc/fused_query.cu",
+        "src/repro/kernels/fused_query.py:73"),
+    "bitserial_cmp": (
+        "src/repro_torch/kernels/csrc/bitserial_cmp.cu",
+        "src/repro/kernels/bitserial_cmp.py:29"),
+    "leaf_gather": (
+        "src/repro_torch/kernels/csrc/leaf_gather.cu",
+        "src/repro/kernels/leaf_gather.py:41"),
 }
+
+# (n_bits, chunks) of the compare front-ends, as in the reference's
+# kernel benchmark (benchmarks/kernel_wallclock.py)
+COMPARE_PLANS = ((8, 1), (16, 2), (32, 5))
+# leaf_gather sums in another order than its plain version
+LEAF_TOL = 1e-4
 
 
 def expect(ok: bool, what: str) -> None:
@@ -72,6 +104,13 @@ def expect(ok: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def column_bits(torch, col: np.ndarray, n_bits: int):
+    """The top ``n_bits`` of a 32-bit column: (uint32 NumPy values, the
+    same bits as an int32 tensor on the card)."""
+    v = (col >> np.uint64(32 - n_bits)).astype(np.uint32)
+    return v, torch.from_numpy(v.view(np.int32)).to(torch.device("cuda"))
 
 
 def card_line() -> str:
@@ -92,6 +131,7 @@ def check_kernels(torch) -> int:
     from repro_torch.apps.predicate import Table
     from repro_torch.core.encoding import ColumnPlan, make_plan
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.common import unpack_bits_torch
     from repro_torch.kernels.fused_session import FusedGbdtExec, FusedTableExec
 
     cuda = torch.device("cuda")
@@ -201,6 +241,88 @@ def check_kernels(torch) -> int:
                                           torch.from_numpy(idx).to(cuda),
                                           gx.num_chunks, 6),
              f"leaf bits with -1 lanes {n_bits}-bit")
+
+    def agree(ok, what):
+        nonlocal n_checks
+        expect(ok, what)
+        n_checks += 1
+
+    # compare kernels and front-ends: 8/16/32-bit plans, N not a multiple
+    # of 32, W not a power of two (12001 -> 384 words)
+    for n_bits, c, n in ((8, 1, 1000), (8, 2, 12001), (16, 2, 4097),
+                         (16, 4, 999), (32, 5, 12001), (32, 8, 5001)):
+        mx = (1 << n_bits) - 1
+        plan = make_plan(n_bits, c)
+        v = rng.integers(0, 1 << n_bits, n, dtype=np.uint64).astype(np.uint32)
+        v[:2] = [0, mx]
+        if n_bits == 32:
+            v[2] = 1 << 31
+        vt = torch.from_numpy(v.view(np.int32)).to(cuda)
+        scalars = [0, 1, 1 << (n_bits - 1), mx - 1, mx,
+                   int(rng.integers(0, mx))]
+        if n_bits == 32:
+            scalars.append(3_000_000_000)
+        lut = ops.encode_lut(vt, plan)
+        for a in scalars:
+            lt, le = ops.resolve_indices(plan, a)
+            same(K.clutch_merge(lut, lt, le),
+                 ref.clutch_merge_ref(lut, lt, le),
+                 f"clutch_merge {n_bits}/{c} n={n} a={a}")
+            agree(np.array_equal(ops.clutch_compare(vt, a, plan).cpu().numpy(),
+                                 v.astype(np.int64) > a),
+                  f"clutch_compare {n_bits}/{c} n={n} a={a}")
+        # bit-serial: scalars with bits above n_bits read only the low bits
+        planes = ops.encode_bitplanes(vt, n_bits)
+        above = [0xFFFFFFFF] + ([(mx + 1) | 5] if n_bits < 32 else [])
+        for a in scalars + above:
+            got = K.bitserial_cmp(planes, a, n_bits)
+            same(got, ref.bitserial_cmp_ref(planes, a, n_bits),
+                 f"bitserial_cmp {n_bits} n={n} a={a}")
+            bits = unpack_bits_torch(got, n).bool().cpu().numpy()
+            agree(np.array_equal(bits, v.astype(np.int64) > (a & mx)),
+                  f"bitserial_compare {n_bits} n={n} a={a}")
+        # banked: three banks, one always true (-1)
+        vb = rng.integers(0, 1 << n_bits, (3, n), dtype=np.uint64
+                          ).astype(np.uint32)
+        vbt = torch.from_numpy(vb.view(np.int32)).to(cuda)
+        a = np.array([-1, mx, int(rng.integers(0, mx))], np.int64)
+        blt, ble = ops.resolve_indices_banked(plan, a)
+        luts = torch.stack([ops.encode_lut(x, plan) for x in vbt])
+        same(K.clutch_merge_banked(luts, blt, ble),
+             ref.clutch_merge_banked_ref(luts, blt, ble),
+             f"clutch_merge_banked {n_bits}/{c} n={n}")
+        agree(np.array_equal(
+            ops.clutch_compare_banked(vbt, a, plan).cpu().numpy(),
+            vb.astype(np.int64) > a[:, None]),
+            f"clutch_compare_banked {n_bits}/{c} n={n}")
+        # range count over the normal and complement LUTs
+        lut_c = ops.encode_lut(vt, plan, complement=True)
+        for x0, x1 in ((0, mx), (mx - 1, mx), (0, 1), (mx // 5, 4 * mx // 5),
+                       (1 << (n_bits - 1), mx)):
+            idx = np.concatenate(ops.resolve_indices(plan, x0)
+                                 + ops.resolve_indices(plan, mx - x1))
+            got = K.fused_range_count(lut, lut_c, idx, c)
+            want = ref.fused_range_count_ref(lut, lut_c, idx, c)
+            same(got[0], want[0], f"range_count bitmap {n_bits} ({x0}, {x1})")
+            same(got[1], want[1], f"range_count count {n_bits} ({x0}, {x1})")
+            agree(int(got[1]) == int(((v > x0) & (v < x1)).sum()),
+                  f"range_count vs NumPy {n_bits} ({x0}, {x1})")
+
+    # leaf_gather: B and T not multiples of 8 or 32, addresses -1 and >= L
+    for b, t, depth in ((33, 7, 5), (1000, 130, 6), (77, 1000, 6)):
+        nl = 1 << depth
+        addrs = rng.integers(-1, nl + 3, (b, t)).astype(np.int32)
+        addrs[0], addrs[1] = -1, nl
+        at = torch.from_numpy(addrs).to(cuda)
+        lv = torch.from_numpy(rng.normal(size=(t, nl)).astype(np.float32)
+                              ).to(cuda)
+        got = K.leaf_gather(at, lv)
+        err = max_abs_err(torch, got, ref.leaf_gather_ref(at, lv))
+        agree(err <= LEAF_TOL, f"leaf_gather {b}x{t}: {err}")
+        agree(torch.equal(got, K.leaf_gather(at, lv)),
+              f"leaf_gather {b}x{t}: two launches differ")
+        agree(float(got[0]) == 0.0 and float(got[1]) == 0.0,
+              f"leaf_gather {b}x{t}: addresses -1 and >= L add nothing")
     return n_checks
 
 
@@ -296,7 +418,8 @@ def run_gbdt_path(torch, report):
     addrs = np.ascontiguousarray(np.concatenate(
         [G.reference_leaf_addrs(forest, X[i:i + 8192])
          for i in range(0, X.shape[0], 8192)]))
-    expect(np.array_equal(ex.leaf_addrs(X), addrs), "leaf addresses")
+    got_addrs = ex.leaf_addrs(X)
+    expect(np.array_equal(got_addrs, addrs), "leaf addresses")
     expect(np.array_equal(job.result,
                           G.assemble_leaves(forest.leaves, addrs)),
            "predictions bit-equal to assemble_leaves")
@@ -314,20 +437,142 @@ def run_gbdt_path(torch, report):
         "max_abs_err_vs_reference_predict": err,
         "launches": counts,
     }
-    return session, handle, X, counts
+    return session, handle, X, got_addrs, job.result, counts
+
+
+# --------------------------------------------------------------------- #
+# Phase 5: the kernel front-ends at full width
+# --------------------------------------------------------------------- #
+
+def run_front_ends(torch, table, q1_count, forest, addrs, predictions,
+                   report):
+    """Drive the front-ends of ``repro_torch.kernels.ops`` on phase 3's
+    column 0 and phase 4's forest and leaf addresses; each result is
+    checked against NumPy or against the session's own result."""
+    import repro_torch.kernels as K
+    from repro_torch.apps.predicate import reference_q1
+    from repro_torch.core.encoding import make_plan
+    from repro_torch.kernels import ops
+
+    cuda = torch.device("cuda")
+    col = table.features[0]
+    wall = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    K.reset_launch_counts()
+    for n_bits, c in COMPARE_PLANS:
+        v, vt = column_bits(torch, col, n_bits)
+        a, plan = 1 << (n_bits - 1), make_plan(n_bits, c)
+        got = timed(f"clutch_compare {n_bits}/{c}",
+                    lambda: ops.clutch_compare(vt, a, plan))
+        expect(np.array_equal(got.cpu().numpy(), v > a),
+               f"clutch_compare {n_bits}/{c} vs NumPy")
+        del got
+        lut = ops.encode_lut(vt, plan)
+        words = ops.compare_gt_scalar(lut, *ops.resolve_indices(plan, a))
+        del lut                           # 1-2 GB: free before the next
+        planes = timed(f"encode_bitplanes {n_bits}",
+                       lambda: ops.encode_bitplanes(vt, n_bits))
+        bits = timed(f"bitserial_compare {n_bits}",
+                     lambda: ops.bitserial_compare(planes, a, n_bits))
+        expect(torch.equal(words, bits),
+               f"bitserial_compare {n_bits} vs compare_gt_scalar words")
+        del planes, words, bits, vt
+
+    # two banks of 2^24 records, the second always true
+    v, vt = column_bits(torch, col, 32)
+    vb, vbt = v.reshape(2, -1), vt.view(2, -1)
+    a = np.array([1 << 31, -1], np.int64)
+    got = timed("clutch_compare_banked 32/5",
+                lambda: ops.clutch_compare_banked(vbt, a, make_plan(32, 5)))
+    got = got.cpu().numpy()
+    expect(np.array_equal(got[0], vb[0] > (1 << 31)),
+           "clutch_compare_banked bank 0 vs NumPy")
+    expect(got[1].all(), "clutch_compare_banked: the -1 bank is not all true")
+    del vbt, got
+
+    # Q1 of phase 3 as one fused range count on column 0, 32 bits / 8
+    mx = (1 << 32) - 1
+    x0, x1 = mx // 8, mx // 2
+    plan = make_plan(32, 8)
+    lut = ops.encode_lut(vt, plan)
+    lut_c = ops.encode_lut(vt, plan, complement=True)
+    idx = np.concatenate(ops.resolve_indices(plan, x0)
+                         + ops.resolve_indices(plan, mx - x1))
+    _, cnt = timed("range_count 32/8",
+                   lambda: ops.range_count(lut, lut_c, idx, 8))
+    want = int(reference_q1(table, 0, x0, x1).sum())
+    expect(int(cnt) == want, f"range_count {int(cnt)} vs reference {want}")
+    expect(int(cnt) == q1_count,
+           f"range_count {int(cnt)} vs phase 3's Q1 bitmap {q1_count}")
+    del vt, lut, lut_c
+
+    # phase 4's leaf addresses summed on the card
+    at = torch.from_numpy(addrs).to(cuda)
+    lv = torch.from_numpy(forest.leaves).to(cuda)
+    pred = timed("gbdt_leaf_sum", lambda: ops.gbdt_leaf_sum(at, lv))
+    expect(torch.equal(pred, ops.gbdt_leaf_sum(at, lv)),
+           "gbdt_leaf_sum: two launches differ")
+    err = float(np.abs(pred.cpu().numpy() - predictions).max())
+    expect(err <= 1e-3, f"gbdt_leaf_sum vs assemble_leaves: {err}")
+
+    counts = K.launch_counts()
+    for k in ("clutch_merge", "clutch_merge_banked", "fused_range_count",
+              "bitserial_cmp", "leaf_gather"):
+        expect(counts[k] > 0, f"{k} not launched on the front-end path")
+    report["front_ends"] = {
+        "records": int(col.shape[0]), "wallclock_ms": wall,
+        "range_count": int(cnt),
+        "gbdt_leaf_sum_max_abs_err_vs_assemble_leaves": err,
+        "launches": counts,
+    }
+    return counts
 
 
 # --------------------------------------------------------------------- #
 # Phase 5: times and bounds at the main path's shapes
 # --------------------------------------------------------------------- #
 
-def median_ms(torch, fn, reps: int = 20) -> float:
+def median_ms(torch, fn, reps: int = 20, batch: int = 1) -> float:
+    """Median over ``reps`` of the time between two CUDA events around
+    ``batch`` calls, per call; a batch keeps kernels of a few
+    microseconds above the events' own resolution."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / batch)
+    return float(np.median(times))
+
+
+def cold_ms(torch, fn, flush, reps: int = 20) -> float:
+    """Median time of one launch with the L2 cache flushed before it
+    (``flush``, a buffer several times the 50 MB L2, is read first; a
+    read and not a write, so no dirty line is left for the kernel to
+    write back): the kernel's own time on data in device memory, as the
+    byte bound assumes.  The flush keeps the card busy while the host
+    runs the wrapper, so the events see the kernel and not the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        flush.max()
         start.record()
         fn()
         stop.record()
@@ -342,10 +587,12 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def max_abs_err(torch, a, b) -> int:
+def max_abs_err(torch, a, b) -> int | float:
     torch.cuda.synchronize()
     if a.shape != b.shape:
         raise RuntimeError(f"shapes differ: {a.shape} vs {b.shape}")
+    if a.is_floating_point():
+        return float((a - b).abs().max())
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -361,26 +608,33 @@ def read_rows(idx: np.ndarray, c: int, n_ranges: int) -> int:
     return len(rows)
 
 
-def measure(torch, table_ex, gbdt_ex, X, launches, report):
+def merge_rows(lt, le) -> int:
+    """Distinct rows one Algorithm 1 merge reads (``le[0]`` never)."""
+    return len({int(i) for i in lt} | {int(i) for i in le[1:]})
+
+
+def measure(torch, table_ex, gbdt_ex, X, addrs, launches, report):
     import repro_torch.kernels as K
+    from repro_torch.core.encoding import make_plan
     from repro_torch.kernels import ops, ref
     from repro_torch.pud import queries as Q
 
     cuda = torch.device("cuda")
     rows = []
 
-    def entry(name, got, want, ms, plain_ms, nbytes, nops, extra=None):
+    def entry(name, got, want, ms, plain_ms, nbytes, nops, extra=None,
+              tol=0, library_ms=None):
         b_ms, b_by = bound(nbytes, nops)
         err = 0
         for g, w in zip(got, want):
             err = max(err, max_abs_err(torch, g, w))
-        expect(err == 0, f"{name} disagrees with its plain version")
+        expect(err <= tol, f"{name} disagrees with its plain version: {err}")
         src, rep = KERNEL_META[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": library_ms})
         if extra:
             report.setdefault("bounds", {})[name] = extra
 
@@ -467,6 +721,123 @@ def measure(torch, table_ex, gbdt_ex, X, launches, report):
           {"lut_shape": list(glut.shape), "masks_shape": list(masks.shape),
            "idx_shape": list(gidx.shape), "dram_bytes": dram,
            "l2_bytes": l2})
+
+    # The front-end path's kernels, at its shapes: CUDA events around
+    # batches of 10 launches, since several bounds are a few microseconds;
+    # several inputs fit the 50 MB L2, so each kernel is also timed alone
+    # after an L2 flush (report "cold_ms"), the time its byte bound is for.
+    cold = report.setdefault("cold_ms", {})
+    flush = torch.ones(64 << 20, dtype=torch.int32, device=cuda)
+
+    def kernel_ms(name, fn):
+        cold[name] = cold_ms(torch, fn, flush)
+        return median_ms(torch, fn, batch=10)
+
+    def plain(fn):
+        return median_ms(torch, fn, reps=5)
+
+    col = table_ex.table.features[0]
+    ratios = []
+    for n_bits, c in COMPARE_PLANS:
+        _, vt = column_bits(torch, col, n_bits)
+        a, plan = 1 << (n_bits - 1), make_plan(n_bits, c)
+        lut = ops.encode_lut(vt, plan)
+        lt, le = (torch.from_numpy(x).to(cuda)
+                  for x in ops.resolve_indices(plan, a))
+        w = lut.shape[1]
+        got = K.clutch_merge(lut, lt, le)
+        want = ref.clutch_merge_ref(lut, lt, le)
+        clutch_ms = kernel_ms(f"clutch_merge {n_bits}/{c}",
+                              lambda: K.clutch_merge(lut, lt, le))
+        clutch_plain = plain(lambda: ref.clutch_merge_ref(lut, lt, le))
+        n_rows = merge_rows(lt.tolist(), le.tolist())
+        clutch_bytes = (n_rows + 1) * w * 4 + 2 * c * 4
+        clutch_ops = w * 5 * (c - 1)
+        del lut
+        planes = ops.encode_bitplanes(vt, n_bits)
+        bgot = K.bitserial_cmp(planes, a, n_bits)
+        bwant = ref.bitserial_cmp_ref(planes, a, n_bits)
+        bs_ms = kernel_ms(f"bitserial_cmp {n_bits}",
+                          lambda: K.bitserial_cmp(planes, a, n_bits))
+        bs_plain = plain(lambda: ref.bitserial_cmp_ref(planes, a, n_bits))
+        bs_bytes, bs_ops = (n_bits + 1) * w * 4, w * 5 * n_bits
+        ratios.append({
+            "n_bits": n_bits, "chunks": c, "words": w,
+            "clutch_ms": clutch_ms, "bitserial_ms": bs_ms,
+            "time_ratio": bs_ms / clutch_ms,
+            "cold_time_ratio": cold[f"bitserial_cmp {n_bits}"]
+            / cold[f"clutch_merge {n_bits}/{c}"],
+            "clutch_rows_read": n_rows,
+            "byte_ratio": bs_bytes / clutch_bytes,
+            "byte_ratio_2c_rows": (n_bits + 1) / (2 * c)})
+        if n_bits == 32:
+            entry("clutch_merge", [got], [want], clutch_ms, clutch_plain,
+                  clutch_bytes, clutch_ops,
+                  {"lut_words": w, "plan": [n_bits, c], "a": a,
+                   "rows_read": n_rows})
+            entry("bitserial_cmp", [bgot], [bwant], bs_ms, bs_plain,
+                  bs_bytes, bs_ops,
+                  {"planes_shape": list(planes.shape), "a": a})
+        del planes, vt
+    report["clutch_vs_bitserial"] = ratios
+
+    # clutch_merge_banked: two banks of 2^24, the second always true
+    plan = make_plan(32, 5)
+    _, vt = column_bits(torch, col, 32)
+    luts = torch.stack([ops.encode_lut(x, plan) for x in vt.view(2, -1)])
+    blt, ble = (torch.from_numpy(x).to(cuda) for x in
+                ops.resolve_indices_banked(plan, np.array([1 << 31, -1])))
+    b, _, w = luts.shape
+    n_rows = sum(merge_rows(x, y) for x, y in zip(blt.tolist(), ble.tolist()))
+    entry("clutch_merge_banked", [K.clutch_merge_banked(luts, blt, ble)],
+          [ref.clutch_merge_banked_ref(luts, blt, ble)],
+          kernel_ms("clutch_merge_banked 32/5",
+                    lambda: K.clutch_merge_banked(luts, blt, ble)),
+          plain(lambda: ref.clutch_merge_banked_ref(luts, blt, ble)),
+          (n_rows + b) * w * 4 + blt.numel() * 8, b * w * 5 * 4,
+          {"lut_shape": list(luts.shape), "rows_read": n_rows})
+    del luts
+
+    # fused_range_count: Q1's range on column 0, 32 bits / 8 chunks
+    mx, plan = (1 << 32) - 1, make_plan(32, 8)
+    lut = ops.encode_lut(vt, plan)
+    lut_c = ops.encode_lut(vt, plan, complement=True)
+    idx = np.concatenate(ops.resolve_indices(plan, mx // 8)
+                         + ops.resolve_indices(plan, mx - mx // 2))
+    didx = torch.from_numpy(idx).to(cuda)
+    w = lut.shape[1]
+    n_rows = merge_rows(idx[:8], idx[8:16]) + merge_rows(idx[16:24],
+                                                         idx[24:])
+    entry("fused_range_count", K.fused_range_count(lut, lut_c, didx, 8),
+          ref.fused_range_count_ref(lut, lut_c, idx, 8),
+          kernel_ms("fused_range_count 32/8",
+                    lambda: K.fused_range_count(lut, lut_c, didx, 8)),
+          plain(lambda: ref.fused_range_count_ref(lut, lut_c, idx, 8)),
+          (n_rows + 1) * w * 4 + idx.nbytes, w * (2 * 5 * 7 + 2),
+          {"lut_shape": list(lut.shape), "rows_read": n_rows})
+    del vt, lut, lut_c
+
+    # leaf_gather: the GBDT path's [65536, 1000] leaf addresses
+    at = torch.from_numpy(addrs).to(cuda)
+    lv = torch.from_numpy(gbdt_ex.forest.leaves).to(cuda)
+    b, t = at.shape
+    nl = lv.shape[1]
+    # the yardstick: one PyTorch call for the same sum over in-range
+    # addresses, offset into the flattened table (never used by the port)
+    flat = at.to(torch.int64) + torch.arange(t, device=cuda) * nl
+    table = lv.reshape(-1, 1)
+    lib_ms = median_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        flat, table, mode="sum"), batch=10)
+    lib_err = max_abs_err(torch, torch.nn.functional.embedding_bag(
+        flat, table, mode="sum")[:, 0], K.leaf_gather(at, lv))
+    entry("leaf_gather", [K.leaf_gather(at, lv)],
+          [ref.leaf_gather_ref(at, lv)],
+          kernel_ms("leaf_gather", lambda: K.leaf_gather(at, lv)),
+          plain(lambda: ref.leaf_gather_ref(at, lv)),
+          (b * t + t * nl + b) * 4, b * t,
+          {"addrs_shape": [b, t], "leaves_shape": [t, nl],
+           "library_max_abs_err": lib_err},
+          tol=LEAF_TOL, library_ms=lib_ms)
     return rows
 
 
@@ -490,17 +861,23 @@ def main() -> int:
     log(f"phase 1: built in {report['build_s']:.1f} s on {card}")
 
     report["kernel_checks"] = check_kernels(torch)
-    log(f"phase 2: {report['kernel_checks']} kernel checks bit-exact")
+    log(f"phase 2: {report['kernel_checks']} kernel checks passed")
 
     tsession, thandle, tcounts = run_table_path(torch, report)
     log(f"phase 3: table path ok {json.dumps(report['table']['queries'])}")
-    gsession, ghandle, X, gcounts = run_gbdt_path(torch, report)
+    gsession, ghandle, X, addrs, predictions, gcounts = run_gbdt_path(
+        torch, report)
     log(f"phase 4: GBDT path ok, predict "
         f"{report['gbdt']['predict_wallclock_ms']:.1f} ms")
 
-    launches = {k: tcounts[k] + gcounts[k] for k in tcounts}
-    rows = measure(torch, tsession.executor(thandle),
-                   gsession.executor(ghandle), X, launches, report)
+    table_ex, gbdt_ex = tsession.executor(thandle), gsession.executor(ghandle)
+    fcounts = run_front_ends(
+        torch, table_ex.table, report["table"]["queries"]["Q1"]["result"],
+        gbdt_ex.forest, addrs, predictions, report)
+    log(f"phase 5: front-ends ok {json.dumps(report['front_ends'])}")
+
+    launches = {k: tcounts[k] + gcounts[k] + fcounts[k] for k in tcounts}
+    rows = measure(torch, table_ex, gbdt_ex, X, addrs, launches, report)
     report["kernels"] = rows
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)

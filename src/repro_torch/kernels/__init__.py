@@ -8,11 +8,15 @@ kernel's launches in its ``launches`` attribute, and nowhere else.
 
 from __future__ import annotations
 
+from .bitserial_cmp import bitserial_cmp
+from .clutch_merge import clutch_merge, clutch_merge_banked
 from .fused_query import (
     fused_compound_banked,
     fused_predicate_banked,
+    fused_range_count,
     gbdt_leafbits_banked,
 )
+from .leaf_gather import leaf_gather
 from .temporal_encode import temporal_encode
 
 #: every kernel wrapper, by name
@@ -21,6 +25,11 @@ KERNELS = {
     "fused_predicate_banked": fused_predicate_banked,
     "fused_compound_banked": fused_compound_banked,
     "gbdt_leafbits_banked": gbdt_leafbits_banked,
+    "clutch_merge": clutch_merge,
+    "clutch_merge_banked": clutch_merge_banked,
+    "fused_range_count": fused_range_count,
+    "bitserial_cmp": bitserial_cmp,
+    "leaf_gather": leaf_gather,
 }
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface, so ``nvcc`` builds
 it in seconds (no PyTorch headers) into ``build/lib<name>-<hash>.so``
 beside this package, at first use.  The file name carries a hash of the
-source and flags, so an edited source never loads a stale library.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale library.
 Importing this module needs no ``nvcc``: the build happens when a
 kernel is first called on a CUDA tensor (or when :func:`build_all` is
 called), and only then can it fail.
@@ -38,7 +39,17 @@ SIGNATURES = {
     "fused_query": {
         "compound_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _U,
                             _P, _P, _P],
+        "range_count_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
         "leafbits_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "clutch_merge": {
+        "merge_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    },
+    "bitserial_cmp": {
+        "bitserial_launch": [_P, _I, _U, _I, _P, _P],
+    },
+    "leaf_gather": {
+        "leaf_gather_launch": [_P, _P, _I, _I, _I, _P, _P],
     },
 }
 
@@ -60,6 +71,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 

@@ -64,6 +64,30 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
+# --------------------------- wrapper inputs --------------------------- #
+
+def index_tensor(idx, n_rows: int, device: torch.device) -> torch.Tensor:
+    """``idx`` as a contiguous int32 tensor on ``device``; host indices
+    outside ``[0, n_rows)`` raise (a negative one would otherwise wrap
+    in a plain version's indexing).  Indices already on the card are
+    clamped into range by the kernels while staged."""
+    t = torch.as_tensor(idx)
+    if t.device.type == "cpu" and t.numel():
+        lo, hi = int(t.min()), int(t.max())
+        if lo < 0 or hi >= n_rows:
+            raise ValueError(
+                f"row indices span [{lo}, {hi}], outside the LUT's "
+                f"{n_rows} rows")
+    return t.to(device=device, dtype=torch.int32).contiguous()
+
+
+def check_words(t: torch.Tensor, ndim: int, what: str = "LUT") -> None:
+    """Raise unless ``t`` is an ``ndim``-D int32 tensor of words."""
+    if t.dim() != ndim or t.dtype != torch.int32:
+        raise ValueError(f"{what} must be a {ndim}-D int32 tensor, got "
+                         f"{t.dim()}-D {t.dtype}")
+
+
 # ------------------------ NumPy packing (host) ------------------------ #
 
 def pack_bits(bits: np.ndarray) -> np.ndarray:

@@ -1,15 +1,17 @@
-// Fused Clutch predicates and GBDT leaf bits, for Hopper (sm_90a).
+// Fused Clutch predicates, range count and GBDT leaf bits, for Hopper
+// (sm_90a).
 //
-// Replaces three TPU kernels of src/repro/kernels/fused_query.py:
+// Replaces four TPU kernels of src/repro/kernels/fused_query.py:
 //   * fused_predicate_banked (_predicate_kernel) and
 //     fused_compound_banked (_compound_kernel): both run on
 //     compound_kernel below, the predicate being the one-term case;
+//   * fused_range_count (_kernel): range_count_kernel below;
 //   * gbdt_leafbits_banked (_leafbits_kernel): leafbits_kernel below.
 //
-// Algorithm 1 merge of one side: acc = row(lt[0]); for j = 1..C-1:
-// acc = maj3(acc, row(lt[j]), row(le[j])) -- 2C-1 gathered rows; le[0]
-// is never read.  A range is the gt-side merge on the normal planes AND
-// the lt-side merge on the complement planes.
+// Algorithm 1 merge of one side (clutch.cuh :: merge): acc = row(lt[0]);
+// for j = 1..C-1: acc = maj3(acc, row(lt[j]), row(le[j])) -- 2C-1
+// gathered rows; le[0] is never read.  A range is the gt-side merge on
+// the normal planes AND the lt-side merge on the complement planes.
 //
 // compound_kernel: one thread per (shard, word).  The block stages the
 // row indices in shared memory; each thread gathers its rows (coalesced
@@ -22,6 +24,11 @@
 // Bound: the gathered rows, nr * 2 * (2C-1) * S * W * 4 bytes (distinct
 // rows only), plus the bitmap written, S * W * 4.
 //
+// range_count_kernel: one range over two separate [R, W] LUTs, the
+// gt-side on `lut`, the lt-side on `lut_c`; otherwise compound_kernel's
+// one-range case with one shard, and the same popcount reduction.
+// Bound: 2 * (2C-1) * W * 4 bytes of rows read plus W * 4 written.
+//
 // leafbits_kernel: grid (instance, word block), one thread per word; the
 // block stages the instance's F * 2C indices in shared memory and the
 // thread loops over features: acc |= merge(f) & mask[f].  The LUT and
@@ -32,13 +39,16 @@
 // outside the LUT; the Python wrappers reject out-of-range host indices
 // before launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "clutch.cuh"
 
 namespace {
 
+using clutch::BLOCK;
+using clutch::add_block_popcount;
+using clutch::merge;
+using clutch::stage;
+
 constexpr int MAX_TERMS = 32;
-constexpr int BLOCK = 256;
 
 struct Terms {
   int n_terms;
@@ -46,26 +56,6 @@ struct Terms {
   uint32_t term_disj;     // bit t: term t ORs its ranges (else ANDs)
   uint32_t conn_disj;     // bit t: connective after term t is OR
 };
-
-__device__ __forceinline__ uint32_t maj3(uint32_t a, uint32_t b, uint32_t c) {
-  return (a & b) | (b & c) | (a & c);
-}
-
-// Algorithm 1 over lt = idx[0:c], le = idx[c:2c]; `col` points at the
-// thread's word of row 0, rows are `W` words apart.
-__device__ __forceinline__ uint32_t merge(const uint32_t* __restrict__ col,
-                                          const int* idx, int c, long long W) {
-  uint32_t acc = __ldg(col + idx[0] * W);
-  for (int j = 1; j < c; ++j)
-    acc = maj3(acc, __ldg(col + idx[j] * W), __ldg(col + idx[c + j] * W));
-  return acc;
-}
-
-__device__ __forceinline__ void stage(int* dst, const int32_t* src, int n,
-                                      int R) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = min(max(src[i], 0), R - 1);
-}
 
 __global__ void compound_kernel(const uint32_t* __restrict__ lut,
                                 const int32_t* __restrict__ idx, int n_idx,
@@ -97,17 +87,24 @@ __global__ void compound_kernel(const uint32_t* __restrict__ lut,
     }
     bm[(long long)s * W + w] = acc;
   }
-  // per-shard popcount: warp, then block, then one atomic per block
-  unsigned n = __reduce_add_sync(0xffffffffu, (unsigned)__popc(acc));
-  __shared__ unsigned warp_sum[BLOCK / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sum[warp] = n;
+  add_block_popcount(acc, cnt + s);
+}
+
+__global__ void range_count_kernel(const uint32_t* __restrict__ lut,
+                                   const uint32_t* __restrict__ lut_c,
+                                   const int32_t* __restrict__ idx, int c,
+                                   int R, int W, uint32_t* __restrict__ bm,
+                                   unsigned long long* __restrict__ cnt) {
+  extern __shared__ int s_idx[];
+  stage(s_idx, idx, 4 * c, R);
   __syncthreads();
-  if (warp == 0) {
-    unsigned v = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0u;
-    v = __reduce_add_sync(0xffffffffu, v);
-    if (lane == 0 && v) atomicAdd(cnt + s, (unsigned long long)v);
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t acc = 0;
+  if (w < W) {
+    acc = merge(lut + w, s_idx, c, W) & merge(lut_c + w, s_idx + 2 * c, c, W);
+    bm[w] = acc;
   }
+  add_block_popcount(acc, cnt);
 }
 
 __global__ void leafbits_kernel(const uint32_t* __restrict__ lut,
@@ -151,6 +148,19 @@ int compound_launch(const void* lut, const void* idx, int n_idx, int c,
                     (cudaStream_t)stream>>>(
       (const uint32_t*)lut, (const int32_t*)idx, n_idx, c, R, W, terms,
       (uint32_t*)bm, (unsigned long long*)cnt);
+  return (int)cudaGetLastError();
+}
+
+// lut, lut_c [R, W] words; idx [4c] int32 (gt_lt, gt_le, lt_lt, lt_le);
+// bm [W] words out; cnt [1] uint64, zeroed by the caller.
+int range_count_launch(const void* lut, const void* lut_c, const void* idx,
+                       int c, int R, int W, void* bm, void* cnt,
+                       void* stream) {
+  if (W <= 0) return (int)cudaSuccess;
+  range_count_kernel<<<(W + BLOCK - 1) / BLOCK, BLOCK, 4 * c * sizeof(int),
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)lut, (const uint32_t*)lut_c, (const int32_t*)idx, c,
+      R, W, (uint32_t*)bm, (unsigned long long*)cnt);
   return (int)cudaGetLastError();
 }
 

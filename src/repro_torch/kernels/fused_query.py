@@ -1,19 +1,22 @@
-"""Fused Clutch predicates and GBDT leaf bits: wrappers of the CUDA kernels.
+"""Fused Clutch predicates, range count and GBDT leaf bits: wrappers of
+the CUDA kernels.
 
-Replaces three TPU kernels of ``src/repro/kernels/fused_query.py``:
+Replaces four TPU kernels of ``src/repro/kernels/fused_query.py``:
 
 * ``fused_predicate_banked`` -- 1-2 range predicates (AND/OR) over a
   whole sharded LUT plus a per-shard popcount, in one launch;
 * ``fused_compound_banked`` -- compound predicates: each term's ranges
   with the term's own AND/OR, folded left to right through the
   connectives, plus the popcount;
+* ``fused_range_count`` -- one range ``x0 < B < x1`` over separate
+  normal and complement LUTs, plus its popcount;
 * ``gbdt_leafbits_banked`` -- per instance, per feature, the Algorithm 1
   merge on the shared threshold LUT OR-ed into the leaf-address bitmap
   through the feature's one-hot mask.
 
 The first two share one CUDA function (``csrc/fused_query.cu ::
 compound_kernel``), the predicate being the one-term compound; each
-wrapper keeps its own launch count.  All three are bound by memory
+wrapper keeps its own launch count.  All four are bound by memory
 traffic (see the notes in the CUDA source).  A CPU tensor takes the
 plain version from :mod:`repro_torch.kernels.ref`.
 
@@ -29,37 +32,21 @@ import ctypes
 import torch
 
 from . import _build
-from .common import on_card
-from .ref import fused_compound_banked_ref, gbdt_leafbits_banked_ref
+from .common import check_words, index_tensor, on_card
+from .ref import (
+    fused_compound_banked_ref,
+    fused_range_count_ref,
+    gbdt_leafbits_banked_ref,
+)
 
 MAX_TERMS = 32          # csrc/fused_query.cu :: MAX_TERMS
 MAX_SMEM_IDX = 12288    # 48 KB of int32 indices staged per block
 
 
-def _index_tensor(idx, n_rows: int, device: torch.device) -> torch.Tensor:
-    """``idx`` as a contiguous int32 tensor on ``device``; host indices
-    outside ``[0, n_rows)`` raise (a negative one would otherwise wrap
-    in the plain version's indexing)."""
-    t = torch.as_tensor(idx)
-    if t.device.type == "cpu" and t.numel():
-        lo, hi = int(t.min()), int(t.max())
-        if lo < 0 or hi >= n_rows:
-            raise ValueError(
-                f"row indices span [{lo}, {hi}], outside the LUT's "
-                f"{n_rows} rows")
-    return t.to(device=device, dtype=torch.int32).contiguous()
-
-
-def _check_lut(lut: torch.Tensor, ndim: int) -> None:
-    if lut.dim() != ndim or lut.dtype != torch.int32:
-        raise ValueError(f"LUT must be a {ndim}-D int32 tensor, got "
-                         f"{lut.dim()}-D {lut.dtype}")
-
-
 def _compound(lut, idx, num_chunks, term_ranges, term_disj, conn_disj):
     """Shared body of the two predicate wrappers; returns the outputs
     and whether the kernel was launched."""
-    _check_lut(lut, 3)
+    check_words(lut, 3)
     term_ranges = tuple(int(n) for n in term_ranges)
     if not 1 <= len(term_ranges) <= MAX_TERMS:
         raise ValueError(f"need 1..{MAX_TERMS} terms, got {len(term_ranges)}")
@@ -71,7 +58,7 @@ def _compound(lut, idx, num_chunks, term_ranges, term_disj, conn_disj):
         raise ValueError(f"every term needs a range: {term_ranges}")
     n_idx = sum(term_ranges) * 4 * num_chunks
     s, r, w = lut.shape
-    idx = _index_tensor(idx, r, lut.device)
+    idx = index_tensor(idx, r, lut.device)
     if tuple(idx.shape) != (n_idx,):
         raise ValueError(f"idx must be [{n_idx}], got {tuple(idx.shape)}")
     if not on_card(lut, idx):
@@ -132,6 +119,39 @@ def fused_compound_banked(lut: torch.Tensor, idx, num_chunks: int,
     return out
 
 
+def fused_range_count(lut: torch.Tensor, lut_c: torch.Tensor, idx,
+                      num_chunks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``x0 < B < x1`` bitmap and COUNT in one launch.
+
+    lut / lut_c: [R, W] int32 normal and complement planes of one
+    column.  idx: [4C] -- (gt_lt, gt_le, lt_lt, lt_le) row indices, the
+    gt-side into ``lut`` and the lt-side into ``lut_c``.  Returns
+    (bitmap [W] int32, count: 0-d int64)."""
+    check_words(lut, 2)
+    check_words(lut_c, 2, "complement LUT")
+    if lut_c.shape != lut.shape:
+        raise ValueError(f"LUT shapes differ: {tuple(lut.shape)} vs "
+                         f"{tuple(lut_c.shape)}")
+    r, w = lut.shape
+    idx = index_tensor(idx, r, lut.device)
+    if num_chunks < 1 or tuple(idx.shape) != (4 * num_chunks,):
+        raise ValueError(f"idx must be [4 * {num_chunks}], got "
+                         f"{tuple(idx.shape)}")
+    if not on_card(lut, lut_c, idx):
+        return fused_range_count_ref(lut, lut_c, idx, num_chunks)
+    lut, lut_c = lut.contiguous(), lut_c.contiguous()
+    bm = torch.empty((w,), dtype=torch.int32, device=lut.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=lut.device)
+    lib = _build.load("fused_query")
+    stream = torch.cuda.current_stream(lut.device).cuda_stream
+    err = lib.range_count_launch(lut.data_ptr(), lut_c.data_ptr(),
+                                 idx.data_ptr(), num_chunks, r, w,
+                                 bm.data_ptr(), cnt.data_ptr(), stream)
+    _build.check(lib, err, "fused_query.range_count_kernel")
+    fused_range_count.launches += 1
+    return bm, cnt
+
+
 def gbdt_leafbits_banked(lut: torch.Tensor, masks: torch.Tensor, idx,
                          num_chunks: int, num_features: int
                          ) -> torch.Tensor:
@@ -142,13 +162,13 @@ def gbdt_leafbits_banked(lut: torch.Tensor, masks: torch.Tensor, idx,
     ``num_features`` are padding).  idx: [B, F * 2C] -- per instance,
     per feature, the (lt, le) row indices of its value.  Returns the
     leaf-address bitmap [B, W] int32."""
-    _check_lut(lut, 2)
-    _check_lut(masks, 2)
+    check_words(lut, 2)
+    check_words(masks, 2, "masks")
     r, w = lut.shape
     if masks.shape[1] != w or masks.shape[0] < num_features:
         raise ValueError(f"masks {tuple(masks.shape)} do not fit "
                          f"{num_features} features x {w} words")
-    idx = _index_tensor(idx, r, lut.device)
+    idx = index_tensor(idx, r, lut.device)
     n = num_features * 2 * num_chunks
     if idx.dim() != 2 or idx.shape[1] != n:
         raise ValueError(f"idx must be [B, {n}], got {tuple(idx.shape)}")
@@ -173,4 +193,5 @@ def gbdt_leafbits_banked(lut: torch.Tensor, masks: torch.Tensor, idx,
 
 fused_predicate_banked.launches = 0
 fused_compound_banked.launches = 0
+fused_range_count.launches = 0
 gbdt_leafbits_banked.launches = 0

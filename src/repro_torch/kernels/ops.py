@@ -1,4 +1,5 @@
-"""LUT construction and Algorithm 1 index resolution.
+"""LUT construction, Algorithm 1 index resolution and the kernel
+front-ends.
 
 Mirrors the layout plumbing of the reference package's ``kernels/ops.py``
 so LUTs and row offsets agree byte for byte: W padded to a multiple of
@@ -6,6 +7,14 @@ so LUTs and row offsets agree byte for byte: W padded to a multiple of
 by a constant-zero and a constant-one row, and the one-row masked to the
 valid elements.  Index resolution is host-side NumPy, memoized per
 ``(plan, scalar)`` like the reference.
+
+The front-ends (:func:`compare_gt_scalar`, :func:`clutch_compare`,
+:func:`clutch_compare_banked`, :func:`range_count`,
+:func:`encode_bitplanes`, :func:`bitserial_compare`,
+:func:`gbdt_leaf_sum`) take the reference's logical inputs and return
+int32 bit patterns where it returns ``uint32`` words.  A tensor input
+keeps its device; a NumPy input goes to ``device``, which defaults to the
+card (and raises without CUDA unless ``device="cpu"`` is given).
 """
 
 from __future__ import annotations
@@ -17,8 +26,36 @@ import torch
 
 from repro_torch.core.encoding import ChunkPlan
 
-from .common import LANES, MASK32, SUBLANES, WORD_BITS, round_up
+from .bitserial_cmp import bitserial_cmp
+from .clutch_merge import clutch_merge, clutch_merge_banked
+from .common import (
+    LANES,
+    MASK32,
+    SUBLANES,
+    WORD_BITS,
+    pack_bits_torch,
+    resolve_device,
+    round_up,
+    unpack_bits_torch,
+)
+from .fused_query import fused_range_count
+from .leaf_gather import leaf_gather
 from .temporal_encode import temporal_encode
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A tensor as it is, on its own device; a NumPy array (or list) as
+    a tensor on ``resolve_device(device)``.  ``uint32`` words cross as
+    int32 bit patterns, ``uint64`` values as int64."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    elif arr.dtype == np.uint64:
+        arr = arr.astype(np.int64)
+    return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(
+        resolve_device(device))
 
 
 def encode_lut(values: torch.Tensor, plan: ChunkPlan,
@@ -111,3 +148,80 @@ def resolve_indices_banked(plan: ChunkPlan, a: np.ndarray
     lt[always] = one_row
     le[always] = one_row
     return lt, le
+
+
+# --------------------------------------------------------------------- #
+# Comparison front-ends
+# --------------------------------------------------------------------- #
+
+def compare_gt_scalar(lut, lt_idx, le_idx, device=None) -> torch.Tensor:
+    """[W] int32 words of ``a < B`` (== ``B > a``) from a prebuilt
+    :func:`encode_lut` LUT and the scalar's :func:`resolve_indices`."""
+    return clutch_merge(_tensor(lut, device), lt_idx, le_idx)
+
+
+def clutch_compare(values, a: int, plan: ChunkPlan,
+                   device=None) -> torch.Tensor:
+    """End to end: encode, resolve, merge, unpack -> bool [N] of
+    ``a < B``.  ``a`` outside ``[0, 2^n_bits)`` raises."""
+    values = _tensor(values, device)
+    lut = encode_lut(values, plan)
+    lt_idx, le_idx = resolve_indices(plan, a)
+    words = compare_gt_scalar(lut, lt_idx, le_idx)
+    return unpack_bits_torch(words, values.shape[0]).bool()
+
+
+def clutch_compare_banked(values, a, plan: ChunkPlan,
+                          device=None) -> torch.Tensor:
+    """Bank-batched compare: ``values`` [B, N], one vector shard per
+    bank; ``a`` [B] per-bank scalars, ``-1`` meaning always true.
+    Returns bool [B, N] of ``a_b < B_b``; a scalar at or above
+    ``2^n_bits`` raises."""
+    values = _tensor(values, device)
+    lt_idx, le_idx = resolve_indices_banked(plan, a)
+    lut = torch.stack([encode_lut(v, plan) for v in values])
+    words = clutch_merge_banked(lut, lt_idx, le_idx)
+    return unpack_bits_torch(words, values.shape[1]).bool()
+
+
+def range_count(lut, lut_c, idx, num_chunks: int, device=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``x0 < B < x1`` bitmap and COUNT: ``lut`` / ``lut_c`` the
+    normal and complement LUTs of one column, ``idx`` [4C] the gt-side
+    indices of ``x0`` then the lt-side indices of ``MAX - x1``.  Returns
+    (words [W] int32, count: 0-d int64)."""
+    return fused_range_count(_tensor(lut, device), _tensor(lut_c, device),
+                             idx, num_chunks)
+
+
+def encode_bitplanes(values, n_bits: int, device=None) -> torch.Tensor:
+    """Binary (bit-sliced) layout for the bit-serial baseline:
+    [round_up(n_bits, 8), W_pad] int32 planes, LSB plane first, padding
+    planes and columns zero -- byte-equal to the reference's."""
+    values = _tensor(values, device)
+    n = values.shape[0]
+    w = round_up((n + WORD_BITS - 1) // WORD_BITS, LANES)
+    v = torch.zeros(w * WORD_BITS, dtype=torch.int64, device=values.device)
+    v[:n] = values.to(torch.int64) & MASK32
+    planes = torch.zeros((round_up(n_bits, SUBLANES), w), dtype=torch.int32,
+                         device=values.device)
+    for i in range(n_bits):
+        planes[i] = pack_bits_torch((v >> i) & 1)
+    return planes
+
+
+def bitserial_compare(planes, a: int, n_bits: int,
+                      device=None) -> torch.Tensor:
+    """[W] int32 words of ``a < B`` over :func:`encode_bitplanes` planes;
+    only the low ``n_bits`` bits of the uint32 ``a`` are read."""
+    return bitserial_cmp(_tensor(planes, device), a, n_bits)
+
+
+# --------------------------------------------------------------------- #
+# GBDT
+# --------------------------------------------------------------------- #
+
+def gbdt_leaf_sum(addrs, leaves, device=None) -> torch.Tensor:
+    """addrs [B, T] int32, leaves [T, L] float32 -> [B] float32
+    predictions; an address outside ``[0, L)`` (such as ``-1``) adds 0."""
+    return leaf_gather(_tensor(addrs, device), _tensor(leaves, device))

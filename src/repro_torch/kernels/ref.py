@@ -27,6 +27,57 @@ def clutch_merge_ref(lut: torch.Tensor, lt_idx, le_idx) -> torch.Tensor:
     return acc
 
 
+def clutch_merge_banked_ref(lut: torch.Tensor, lt_idx,
+                            le_idx) -> torch.Tensor:
+    """Per-bank Algorithm 1 merge: ``lut`` [B, R, W], ``lt_idx`` /
+    ``le_idx`` [B, C] per-bank row indices.  Returns [B, W]; the bank
+    axis is a gather dimension instead of a Python loop."""
+    lt = torch.as_tensor(lt_idx).to(device=lut.device, dtype=torch.int64)
+    le = torch.as_tensor(le_idx).to(device=lut.device, dtype=torch.int64)
+    banks = torch.arange(lut.shape[0], device=lut.device)
+    acc = lut[banks, lt[:, 0]]
+    for j in range(1, lt.shape[1]):
+        acc = maj3(acc, lut[banks, lt[:, j]], lut[banks, le[:, j]])
+    return acc
+
+
+def fused_range_count_ref(lut: torch.Tensor, lut_c: torch.Tensor, idx,
+                          num_chunks: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``x0 < B < x1``: the gt-side merge on the normal LUT, the
+    lt-side on the complement LUT, AND, plus popcount.  ``idx`` is [4C]
+    (gt_lt, gt_le, lt_lt, lt_le).  Returns (bitmap [W], count: 0-d
+    int64)."""
+    idx = torch.as_tensor(idx).tolist()
+    c = num_chunks
+    bm = clutch_merge_ref(lut, idx[:c], idx[c:2 * c]) & \
+        clutch_merge_ref(lut_c, idx[2 * c:3 * c], idx[3 * c:])
+    return bm, popcount_torch(bm).sum()
+
+
+def bitserial_cmp_ref(planes: torch.Tensor, a: int,
+                      n_bits: int) -> torch.Tensor:
+    """Borrow-chain bit-serial baseline: ``planes`` [n_pad, W] (LSB
+    plane first), ``a`` a uint32 scalar of which only the low ``n_bits``
+    bits are read.  Returns the [W] bitmap of ``a < B``."""
+    borrow = torch.zeros_like(planes[0])
+    for i in range(n_bits):
+        not_a = 0 if (a >> i) & 1 else -1      # all ones as int32 bits
+        borrow = maj3(not_a, planes[i], borrow)
+    return borrow
+
+
+def leaf_gather_ref(addrs: torch.Tensor, leaves: torch.Tensor
+                    ) -> torch.Tensor:
+    """GBDT leaf aggregation: ``addrs`` [B, T] int32, ``leaves`` [T, L]
+    float32.  Returns [B] float32, the sum over trees of ``leaves[t,
+    addrs[b, t]]``; an address outside ``[0, L)`` adds 0."""
+    t, nl = leaves.shape
+    a = addrs.to(torch.int64)
+    vals = leaves[torch.arange(t, device=leaves.device), a.clamp(0, nl - 1)]
+    return torch.where((a >= 0) & (a < nl), vals, 0.0).sum(-1)
+
+
 def temporal_encode_ref(chunk_vals: torch.Tensor, k: int) -> torch.Tensor:
     """[N] chunk values -> [2^k - 1, ceil(N/32)] packed planes, plane
     ``r`` bit ``i`` == ``r < v_i``."""
