@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
    of 32, word counts not a power of two, 1-3 shards, every index
    boundary (chunk values 0 and 2^k - 1, the always-true -1), ragged
    per-column plans, 1-3 compound terms, scalars 0, 2^n - 1, >= 2^31
-   and with bits above ``n_bits``, leaf addresses -1 and >= L; and the
+   and with bits above ``n_bits``, leaf addresses -1 and >= L, logits
+   +-0, +-NaN, +-inf and denormals with V not a multiple of 4; and the
    comparison front-ends against NumPy.
 3. Table path at full width: ``Table.generate(2**25, 32, num_features=8)``
    (33.5M records, 2 shards, 8 chunks of 4 bits: an 8.6 GB LUT) through
@@ -31,7 +32,16 @@ Phases (any failure exits non-zero; none is caught and passed over):
    to phase 3's Q1 bitmap), ``gbdt_leaf_sum`` over phase 4's leaf
    addresses (within 1e-3 of ``assemble_leaves``, two launches
    bit-equal).
-6. Time each kernel, its plain version, its bound and, where one
+6. LM serving at full width: ``minitron-8b`` (7.73 B parameters, bf16,
+   random weights from ``torch.Generator("cuda").manual_seed(0)``)
+   serves 16 requests of 256-token prompts, 32 new tokens each, through
+   ``ServeEngine(num_slots=8, max_len=1024)`` with the min-p sampler on
+   the ``minp_mask`` kernel (one launch per decode step); decode at
+   position 254 within a stated bf16 tolerance of ``forward_logits``;
+   on a decode step's ``[8, 256000]`` logits the kernel equals its
+   plain version and the float comparison bit for bit, and 4,096 draws
+   land in the kept set.
+7. Time each kernel, its plain version, its bound and, where one
    PyTorch call computes the same function, that call, at the paths'
    shapes; print the ``kernels`` JSON line and, last, the ok line.
 
@@ -88,6 +98,9 @@ KERNEL_META = {
     "leaf_gather": (
         "src/repro_torch/kernels/csrc/leaf_gather.cu",
         "src/repro/kernels/leaf_gather.py:41"),
+    "minp_mask": (
+        "src/repro_torch/kernels/csrc/minp_mask.cu",
+        "src/repro/kernels/minp_mask.py:47"),
 }
 
 # (n_bits, chunks) of the compare front-ends, as in the reference's
@@ -95,6 +108,19 @@ KERNEL_META = {
 COMPARE_PLANS = ((8, 1), (16, 2), (32, 5))
 # leaf_gather sums in another order than its plain version
 LEAF_TOL = 1e-4
+# phase 6: minitron-8b at full width, 16 requests through 8 slots
+LM_ARCH = "minitron-8b"
+LM_REQUESTS, LM_SLOTS, LM_MAX_LEN = 16, 8, 1024
+LM_PROMPT, LM_NEW, LM_DRAWS = 256, 32, 4096
+# decode vs forward in bf16, as fractions of the largest logit: 2^-4 is
+# 16 bf16 ulps of it (max error), 2^-6 4 ulps (mean error)
+DECODE_TOL, DECODE_MEAN_TOL = 2.0 ** -4, 2.0 ** -6
+# minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
+MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
+                      -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
+                     np.float32)
+MINP_EDGE_SHAPES = ((1, 100), (4, 1024), (8, 50000), (3, 7), (5, 301),
+                    (2, 1), (16, 2050))
 
 
 def expect(ok: bool, what: str) -> None:
@@ -104,6 +130,26 @@ def expect(ok: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Float tensors equal bit for bit (NaN payloads included)."""
+    torch.cuda.synchronize()
+    return a.shape == b.shape and torch.equal(
+        a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def minp_edge_batch(rng, b: int, v: int):
+    """Logits [b, v] (normal * 8), each row starting with the edge
+    values; thresholds [b]: one equal to a logit, then +0.0, -0.0, a
+    denormal and +NaN, then normal draws."""
+    x = (rng.normal(size=(b, v)) * 8).astype(np.float32)
+    m = min(v, MINP_EDGE.size)
+    x[:, :m] = MINP_EDGE[:m]
+    tau = rng.normal(size=b).astype(np.float32)
+    special = np.array([x[0, v // 2], 0.0, -0.0, 1e-45, np.nan], np.float32)
+    tau[:min(b, special.size)] = special[:b]
+    return x, tau
 
 
 def column_bits(torch, col: np.ndarray, n_bits: int):
@@ -323,6 +369,26 @@ def check_kernels(torch) -> int:
               f"leaf_gather {b}x{t}: two launches differ")
         agree(float(got[0]) == 0.0 and float(got[1]) == 0.0,
               f"leaf_gather {b}x{t}: addresses -1 and >= L add nothing")
+
+    # minp_mask: +-0, +-NaN, +-inf, denormals, tau equal to a logit; V not
+    # a multiple of 4 (rows off the 16-byte grid), an unaligned view, and
+    # every chunking the kernel takes; compared as bit patterns (NaN)
+    for b, v in MINP_EDGE_SHAPES:
+        x, tau = minp_edge_batch(rng, b, v)
+        xt, tt = torch.from_numpy(x).to(cuda), torch.from_numpy(tau).to(cuda)
+        for chunks in ((8, 8, 8, 8), (16, 16), (32,), (4,) * 8,
+                       (5, 7, 9, 11)):
+            agree(same_bits(torch, K.minp_mask(xt, tt, chunks),
+                            ref.minp_mask_ref(xt, tt, chunks)),
+                  f"minp_mask {b}x{v} chunks={chunks}")
+        flat = torch.empty(b * v + 1, device=cuda)
+        flat[1:] = xt.reshape(-1)
+        agree(same_bits(torch, K.minp_mask(flat[1:].view(b, v), tt),
+                        ref.minp_mask_ref(xt, tt)),
+              f"minp_mask {b}x{v} from an unaligned view")
+        agree(same_bits(torch, ops.sample_threshold_mask(x, tau),
+                        ref.minp_mask_ref(xt, tt)),
+              f"sample_threshold_mask {b}x{v} on NumPy input")
     return n_checks
 
 
@@ -537,7 +603,195 @@ def run_front_ends(torch, table, q1_count, forest, addrs, predictions,
 
 
 # --------------------------------------------------------------------- #
-# Phase 5: times and bounds at the main path's shapes
+# Phase 6: LM serving at full width
+# --------------------------------------------------------------------- #
+
+def run_lm_path(torch, report):
+    """Serve ``minitron-8b`` at full width (bf16, random weights from a
+    seed) through ``ServeEngine`` with the min-p sampler on the
+    ``minp_mask`` kernel; check decode against forward and the sampler
+    on a decode step's logits.  Returns the launch counts of the engine
+    run and one decode step's [8, V] logits with their thresholds."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm as M
+    from repro_torch.serve.engine import (
+        Request,
+        SamplerConfig,
+        ServeEngine,
+        gumbel_max,
+        threshold_mask,
+    )
+
+    cuda = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+
+    walk(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    expect(all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves),
+           "minitron-8b parameters are not bf16 on the card")
+    expect(abs(n_params - 7.73e9) < 0.01e9, f"{n_params} parameters")
+
+    # the engine run: 16 equal-length prompts, so each request decodes at
+    # its own positions (every slot decodes at the largest position)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, LM_PROMPT)
+                    .astype(np.int32), max_new_tokens=LM_NEW)
+            for i in range(LM_REQUESTS)]
+    sc = SamplerConfig()
+    eng = ServeEngine(cfg, params, num_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      sc=sc)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for blk in eng.cache.values() for t in blk.values())
+    prefill_ms, step_ms = [], []
+
+    def timed(fn, into):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    eng.add_request = timed(eng.add_request, prefill_ms)
+    eng.step = timed(eng.step, step_ms)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    expect(sorted(r.rid for r in done) == list(range(LM_REQUESTS)),
+           "not every request finished")
+    for r in done:
+        expect(len(r.out_tokens) == LM_NEW and
+               all(0 <= t < cfg.vocab for t in r.out_tokens),
+               f"request {r.rid}: {len(r.out_tokens)} tokens, "
+               f"range [{min(r.out_tokens)}, {max(r.out_tokens)}]")
+    expect(counts["minp_mask"] == len(step_ms) > 0,
+           f"minp_mask launched {counts['minp_mask']} times in "
+           f"{len(step_ms)} decode steps")
+    tokens = sum(len(r.out_tokens) for r in done)
+
+    # decode against forward in bf16: 2 prompts of 255 tokens, prefill
+    # 254, decode position 254.  Both run 32 bf16 layers, with the
+    # activations rounded at other places (batched GEMMs of 254 rows
+    # against GEMVs of 2) and the logits rounded to bf16 in lm_head,
+    # where one ulp is 2^-4 at magnitudes 8-16: they agree to a few
+    # ulps, not bit for bit.
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, LM_PROMPT - 1))).to(cuda)
+    full = M.forward_logits(cfg, params, {"tokens": toks})[:, -1]
+    _, cache = M.prefill(cfg, params, {"tokens": toks[:, :-1]},
+                         max_len=LM_MAX_LEN)
+    step, _ = M.decode_step(cfg, params, cache, toks[:, -1:],
+                            LM_PROMPT - 2)
+    del cache
+    diff = (step[:, 0] - full).abs()
+    scale = float(full.abs().max())
+    dec_err, dec_mean = float(diff.max()), float(diff.mean())
+    expect(dec_err <= DECODE_TOL * scale and dec_mean <= DECODE_MEAN_TOL
+           * scale, f"decode vs forward: max {dec_err}, mean {dec_mean}, "
+           f"largest logit {scale}")
+    same_argmax = (step[:, 0].argmax(-1) == full.argmax(-1)).tolist()
+    del full, step
+
+    # the sampler on a decode step's [8, V] logits: the next step of the
+    # served cache, fed the last requests' last tokens
+    last = torch.from_numpy(np.array(
+        [[r.out_tokens[-1]] for r in done[-LM_SLOTS:]])).to(cuda)
+    pos = LM_PROMPT - 1 + LM_NEW
+    logits, _ = M.decode_step(cfg, params, eng.cache, last, pos)
+    logits = logits[:, 0].contiguous()
+    expect(not bool(torch.isnan(logits).any())
+           and not bool((logits == 0).any()),
+           "these logits hold a NaN or a zero: the float comparison "
+           "would differ from the kernel")
+    tau, masked = threshold_mask(logits, sc)
+    expect(same_bits(torch, masked, ref.minp_mask_ref(logits, tau)),
+           "minp_mask vs its plain version on real logits")
+    expect(same_bits(torch, masked, torch.where(
+        logits >= tau[:, None], logits, ref.MINP_FILL)),
+        "minp_mask vs the float comparison on real logits")
+    kept = masked > ref.MINP_FILL
+    g = torch.Generator("cuda").manual_seed(0)
+    draws = torch.stack([gumbel_max(masked, g)
+                         for _ in range(LM_DRAWS // LM_SLOTS)])
+    expect(bool(kept.gather(1, draws.T).all()),
+           "a draw landed outside the kept set")
+
+    step_sorted = sorted(step_ms)
+    report["lm"] = {
+        "arch": LM_ARCH, "dtype": "bfloat16", "params": n_params,
+        "param_gb": param_bytes / 1e9, "kv_cache_gb": cache_bytes / 1e9,
+        "init_s": init_s, "requests": LM_REQUESTS, "prompt": LM_PROMPT,
+        "new_tokens": LM_NEW, "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+        "engine_s": run_s, "tokens": tokens, "tok_per_s": tokens / run_s,
+        "decode_steps": len(step_ms),
+        "decode_step_ms_median": float(np.median(step_ms)),
+        "decode_step_ms_min_max": [step_sorted[0], step_sorted[-1]],
+        "prefill_ms_median": float(np.median(prefill_ms)),
+        "prefill_ms_min_max": [min(prefill_ms), max(prefill_ms)],
+        "decode_vs_forward_max_abs_err": dec_err,
+        "decode_vs_forward_mean_abs_err": dec_mean,
+        "largest_logit": scale, "decode_forward_same_argmax": same_argmax,
+        "kept_per_row": kept.sum(-1).tolist(),
+        "draws": int(draws.numel()),
+        "peak_gb_lm_phase": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts,
+    }
+    report["lm"]["device_busy"] = profile_decode_step(
+        torch, lambda: M.decode_step(cfg, params, eng.cache, last, pos))
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts, logits, tau
+
+
+def profile_decode_step(torch, fn) -> dict:
+    """One decode step under ``torch.profiler``: the kernels' summed
+    device time against the step's wall-clock (median of 5 unprofiled
+    steps), and the five largest device-time entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    expect(device_ms > 0, "the profiler saw no device time")
+    wall = float(np.median(walls))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    return {"step_wall_ms": wall, "device_ms": device_ms,
+            "device_idle_share": max(0.0, 1 - device_ms / wall),
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+# --------------------------------------------------------------------- #
+# Phase 7: times and bounds at the main path's shapes
 # --------------------------------------------------------------------- #
 
 def median_ms(torch, fn, reps: int = 20, batch: int = 1) -> float:
@@ -613,7 +867,8 @@ def merge_rows(lt, le) -> int:
     return len({int(i) for i in lt} | {int(i) for i in le[1:]})
 
 
-def measure(torch, table_ex, gbdt_ex, X, addrs, launches, report):
+def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
+            report):
     import repro_torch.kernels as K
     from repro_torch.core.encoding import make_plan
     from repro_torch.kernels import ops, ref
@@ -838,6 +1093,37 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, launches, report):
           {"addrs_shape": [b, t], "leaves_shape": [t, nl],
            "library_max_abs_err": lib_err},
           tol=LEAF_TOL, library_ms=lib_ms)
+
+    # minp_mask: the LM path's [8, 256000] decode-step logits, and 16
+    # copies of them as a [128, 256000] batch (report)
+    def library(x, t):
+        return torch.where(x >= t[:, None], x, ref.MINP_FILL)
+
+    minp = {}
+    for reps in (16, 1):
+        x = lm_logits.repeat(reps, 1).contiguous()
+        t = lm_tau.repeat(reps)
+        b, v = x.shape
+        got, want = K.minp_mask(x, t), ref.minp_mask_ref(x, t)
+        expect(same_bits(torch, got, want), f"minp_mask {b}x{v} bits")
+        ms = kernel_ms(f"minp_mask {b}x{v}", lambda: K.minp_mask(x, t))
+        lib_ms = median_ms(torch, lambda: library(x, t), batch=10)
+        cold[f"torch.where {b}x{v}"] = cold_ms(torch, lambda: library(x, t),
+                                               flush)
+        minp[f"{b}x{v}"] = {
+            "ms": ms, "cold_ms": cold[f"minp_mask {b}x{v}"],
+            "plain_ms": plain(lambda: ref.minp_mask_ref(x, t)),
+            "library_ms": lib_ms,
+            "library_cold_ms": cold[f"torch.where {b}x{v}"],
+            "bound_ms": bound(2 * b * v * 4 + 4 * b, 0)[0]}
+    report["minp_mask"] = minp
+    main_path = minp[f"{LM_SLOTS}x{v}"]
+    entry("minp_mask", [got], [want], main_path["ms"], main_path["plain_ms"],
+          2 * b * v * 4 + 4 * b, b * v * (6 * 4 + 4),
+          {"logits_shape": [b, v], "chunks": [8, 8, 8, 8],
+           "ops_counted": "per element: 6 per chunk, 4 for the map and "
+                          "the select"},
+          library_ms=main_path["library_ms"])
     return rows
 
 
@@ -876,8 +1162,13 @@ def main() -> int:
         gbdt_ex.forest, addrs, predictions, report)
     log(f"phase 5: front-ends ok {json.dumps(report['front_ends'])}")
 
-    launches = {k: tcounts[k] + gcounts[k] + fcounts[k] for k in tcounts}
-    rows = measure(torch, table_ex, gbdt_ex, X, addrs, launches, report)
+    lcounts, lm_logits, lm_tau = run_lm_path(torch, report)
+    log(f"phase 6: LM serving ok {json.dumps(report['lm'])}")
+
+    launches = {k: tcounts[k] + gcounts[k] + fcounts[k] + lcounts[k]
+                for k in tcounts}
+    rows = measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau,
+                   launches, report)
     report["kernels"] = rows
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)

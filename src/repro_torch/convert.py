@@ -1,10 +1,11 @@
 """Carry state across from plain NumPy arrays and ints.
 
 The port shares no objects with the reference package: a caller holding
-the reference's table, forest or plans reads their NumPy fields and
-passes them here, and gets the port's own objects back.  Word arrays
-cross as bit patterns: a ``uint32`` array becomes an int32 tensor with
-the same bits, and back.
+the reference's table, forest, plans or model parameters reads their
+NumPy fields and passes them here, and gets the port's own objects back.
+Word arrays cross as bit patterns: a ``uint32`` array becomes an int32
+tensor with the same bits, and back; bfloat16 arrays cross as their
+16-bit patterns.
 """
 
 from __future__ import annotations
@@ -46,3 +47,23 @@ def words_to_torch(words: np.ndarray, device="cpu") -> torch.Tensor:
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     """int32 tensor -> ``uint32`` array with the same bits."""
     return words.detach().cpu().numpy().view(np.uint32)
+
+
+def array_to_torch(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    """A NumPy array as a tensor with the same values, bit for bit.  A
+    bfloat16 array (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses) crosses as its 16-bit patterns, viewed as ``torch.bfloat16``."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def lm_params(np_tree: dict, device="cpu") -> dict:
+    """The reference's LM parameter (or cache) tree, as nested dicts of
+    NumPy arrays, to the port's: the same nesting and layouts
+    (period-stacked leaves), each leaf bit-equal."""
+    return {k: lm_params(v, device) if isinstance(v, dict)
+            else array_to_torch(np.asarray(v), device)
+            for k, v in np_tree.items()}

@@ -17,6 +17,7 @@ from .fused_query import (
     gbdt_leafbits_banked,
 )
 from .leaf_gather import leaf_gather
+from .minp_mask import minp_mask
 from .temporal_encode import temporal_encode
 
 #: every kernel wrapper, by name
@@ -30,6 +31,7 @@ KERNELS = {
     "fused_range_count": fused_range_count,
     "bitserial_cmp": bitserial_cmp,
     "leaf_gather": leaf_gather,
+    "minp_mask": minp_mask,
 }
 
 

@@ -131,6 +131,18 @@ def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def float_to_monotonic_u32(x: torch.Tensor) -> torch.Tensor:
+    """Map float32 values to order-preserving uint32 images, returned as
+    int32 bit patterns: ``x < y  <=>  m(x) < m(y)`` as unsigned words
+    (the IEEE-754 sign-magnitude fix-up: flip every bit of a negative
+    value, only the sign bit of a positive one).  Works in int64, where
+    the shift and the XOR are exact.  -0.0 maps below +0.0, +NaN above
+    +inf and -NaN below -inf."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & MASK32
+    flip = torch.where(bits >> 31 == 1, MASK32, 1 << 31)
+    return to_int32_bits(bits ^ flip)
+
+
 def pack_bits_torch(bits: torch.Tensor) -> torch.Tensor:
     """[..., N] 0/1 -> [..., ceil(N/32)] int32 words (little-endian)."""
     n = bits.shape[-1]

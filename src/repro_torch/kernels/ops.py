@@ -11,10 +11,11 @@ valid elements.  Index resolution is host-side NumPy, memoized per
 The front-ends (:func:`compare_gt_scalar`, :func:`clutch_compare`,
 :func:`clutch_compare_banked`, :func:`range_count`,
 :func:`encode_bitplanes`, :func:`bitserial_compare`,
-:func:`gbdt_leaf_sum`) take the reference's logical inputs and return
-int32 bit patterns where it returns ``uint32`` words.  A tensor input
-keeps its device; a NumPy input goes to ``device``, which defaults to the
-card (and raises without CUDA unless ``device="cpu"`` is given).
+:func:`gbdt_leaf_sum`, :func:`sample_threshold_mask`) take the
+reference's logical inputs and return int32 bit patterns where it returns
+``uint32`` words.  A tensor input keeps its device; a NumPy input goes to
+``device``, which defaults to the card (and raises without CUDA unless
+``device="cpu"`` is given).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from .common import (
 )
 from .fused_query import fused_range_count
 from .leaf_gather import leaf_gather
+from .minp_mask import minp_mask
 from .temporal_encode import temporal_encode
 
 
@@ -225,3 +227,17 @@ def gbdt_leaf_sum(addrs, leaves, device=None) -> torch.Tensor:
     """addrs [B, T] int32, leaves [T, L] float32 -> [B] float32
     predictions; an address outside ``[0, L)`` (such as ``-1``) adds 0."""
     return leaf_gather(_tensor(addrs, device), _tensor(leaves, device))
+
+
+# --------------------------------------------------------------------- #
+# Serving sampler
+# --------------------------------------------------------------------- #
+
+def sample_threshold_mask(logits, tau, chunks: tuple[int, ...] = (8, 8, 8, 8),
+                          device=None) -> torch.Tensor:
+    """Serving sampler hot path: mask logits below a per-row threshold via
+    the chunked Clutch comparator.  logits [B, V] float32, tau [B]
+    float32; returns [B, V] float32 with -1e30 where a logit's monotonic
+    image is below its threshold's.  Any B and V: the kernel masks its
+    own ragged edge, so nothing is padded."""
+    return minp_mask(_tensor(logits, device), _tensor(tau, device), chunks)

@@ -11,7 +11,13 @@ from __future__ import annotations
 
 import torch
 
-from .common import maj3, pack_bits_torch, popcount_torch
+from .common import (
+    MASK32,
+    float_to_monotonic_u32,
+    maj3,
+    pack_bits_torch,
+    popcount_torch,
+)
 
 
 def clutch_merge_ref(lut: torch.Tensor, lt_idx, le_idx) -> torch.Tensor:
@@ -147,3 +153,40 @@ def gbdt_leafbits_banked_ref(lut: torch.Tensor, masks: torch.Tensor,
             cmp = maj3(cmp, lut[idx[:, o + j]], lut[idx[:, o + c + j]])
         acc |= cmp & masks[f]
     return acc
+
+
+MINP_FILL = -1e30
+
+
+def minp_mask_ref(logits: torch.Tensor, tau: torch.Tensor,
+                  chunks: tuple[int, ...] = (8, 8, 8, 8)) -> torch.Tensor:
+    """Min-p logit mask as the TPU kernel computes it: ``logits`` [B, V]
+    and ``tau`` [B] float32 are mapped to order-preserving uint32 images
+    (:func:`float_to_monotonic_u32`) and compared chunk by chunk with the
+    Clutch recurrence ``acc = lt | (le & acc)``, LSB chunk first; a logit
+    is kept where ``acc | (xu == tu)``, i.e. ``m(x) >= m(tau)``, and
+    replaced by ``MINP_FILL`` (-1e30) elsewhere.
+
+    This differs from the float comparison (:func:`minp_mask_float_ref`)
+    in two places only: a logit -0.0 against tau +0.0 is dropped here
+    (kept there), and a logit +NaN is kept here (dropped there); against
+    a tau that is not NaN, a -NaN is dropped by both."""
+    xu = float_to_monotonic_u32(logits).to(torch.int64) & MASK32
+    tu = (float_to_monotonic_u32(tau).to(torch.int64) & MASK32)[:, None]
+    shift, acc = 0, None
+    for k in chunks:
+        mask = (1 << k) - 1
+        xc, tc = (xu >> shift) & mask, (tu >> shift) & mask
+        lt = tc < xc
+        acc = lt if acc is None else lt | ((tc <= xc) & acc)
+        shift += k
+    return torch.where(acc | (xu == tu), logits, MINP_FILL)
+
+
+def minp_mask_float_ref(logits: torch.Tensor, tau: torch.Tensor
+                        ) -> torch.Tensor:
+    """The reference package's float oracle: keep ``logits >= tau[:,
+    None]``.  It agrees with :func:`minp_mask_ref` bit for bit except on
+    a logit -0.0 against tau +0.0 (kept here) and a logit +NaN (dropped
+    here)."""
+    return torch.where(logits >= tau[:, None], logits, MINP_FILL)

@@ -1,0 +1,313 @@
+"""Transformer building blocks: norms, RoPE, GQA attention (sliding
+window / softcap / bias variants) and the MLP variants.
+
+Counterpart of the reference package's ``models/layers.py``, in plain
+tensor functions over explicit parameter dicts, with the same layouts:
+
+  * attention weights are stored fused-2D ([D, H*dh] etc.); head reshapes
+    happen inside the computation.
+  * the vocab is padded to a multiple of 128 (:func:`padded_vocab`);
+    :func:`lm_head` masks the padding logits to ``NEG_INF``.
+  * KV caches are stored flat, [B, S, KV*dh].
+  * attention is einsum-based in the compute dtype with a float32 softmax,
+    as the reference leaves it to XLA outside any kernel.
+
+Casts sit where the reference's sit: the score einsum runs in the
+compute dtype and is divided by sqrt(dh) before the float32 cast; RoPE's
+float32 cos/sin promote a bf16 input before the cast back.  Every
+``*_init`` draws from an explicit ``torch.Generator`` with the
+reference's scales.  Not ported yet (``ROADMAP.md`` Queue 1, "the
+modules still missing"): ``moe``, and the knobs ``attn_shard_heads``,
+``sp_decode`` and ``attn_q_chunk``; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+Params = dict[str, Any]
+
+NEG_INF = -2.0e38
+VOCAB_ALIGN = 128
+_MISSING = ("not ported yet: ROADMAP.md Queue 1, the modules still "
+            "missing")
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is {_MISSING}")
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    return (cfg.vocab + VOCAB_ALIGN - 1) // VOCAB_ALIGN * VOCAB_ALIGN
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _normal(shape, scale: float, cfg: ModelConfig, gen: torch.Generator,
+            device: torch.device, lead: tuple[int, ...] = ()
+            ) -> torch.Tensor:
+    """Standard normal draws in the parameter dtype, times ``scale`` in
+    that dtype (as the reference scales its draws).  ``lead`` prefixes
+    the shape, so a period-stacked leaf is drawn in one piece."""
+    x = torch.randn(lead + tuple(shape), generator=gen, dtype=pdtype(cfg),
+                    device=gen.device)
+    return x.mul_(scale).to(device)
+
+
+# ----------------------------- norms ---------------------------------- #
+
+def rmsnorm_init(cfg: ModelConfig, device: torch.device,
+                 lead: tuple[int, ...] = ()) -> Params:
+    return {"scale": torch.ones(lead + (cfg.d_model,), dtype=pdtype(cfg),
+                                device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * (1.0 + p["scale"].float())).to(dt)
+
+
+# ----------------------------- RoPE ----------------------------------- #
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: [..., S, n, d_head]; positions: [S]."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs                 # [S, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    while cos.dim() < x.dim() - 1:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[..., None, :], sin[..., None, :]            # head axis
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# --------------------------- attention -------------------------------- #
+
+def attn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
+              lead: tuple[int, ...] = ()) -> Params:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = 1.0 / math.sqrt(d)
+    p = {
+        "wq": _normal((d, h * dh), s, cfg, gen, device, lead),
+        "wk": _normal((d, kv * dh), s, cfg, gen, device, lead),
+        "wv": _normal((d, kv * dh), s, cfg, gen, device, lead),
+        "wo": _normal((h * dh, d), 1.0 / math.sqrt(h * dh), cfg, gen,
+                      device, lead),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * dh), ("bk", kv * dh), ("bv", kv * dh)):
+            p[name] = torch.zeros(lead + (n,), dtype=pdtype(cfg),
+                                  device=device)
+    return p
+
+
+def _softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+               window: int | None) -> torch.Tensor:
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def _check_knobs(cfg: ModelConfig) -> None:
+    for knob in ("attn_shard_heads", "sp_decode", "attn_q_chunk"):
+        if getattr(cfg, knob):
+            raise not_ported(f"ModelConfig.{knob}")
+
+
+def project_kv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V projections in flat cache layout [B, S, KV*dh], RoPE applied
+    to the keys."""
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bk" in p:
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    kh = k.reshape(*k.shape[:-1], kv, dh)
+    return rope(kh, positions, cfg.rope_theta).reshape(k.shape), v
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
+            v_flat: torch.Tensor, mask: torch.Tensor | None
+            ) -> torch.Tensor:
+    """q: [B, Sq, H, dh]; k/v: [B, Sk, KV*dh]; mask: broadcastable to
+    [B, KV, G, Sq, Sk].  Returns [B, Sq, H*dh].  Query head ``h`` reads
+    KV head ``h // G`` (the reshape to [B, Sq, KV, G, dh])."""
+    b, sq, h, dh = q.shape
+    kv = cfg.n_kv_heads
+    g = h // kv
+    kh = k_flat.reshape(b, -1, kv, dh)
+    vh = v_flat.reshape(b, -1, kv, dh)
+    qg = q.reshape(b, sq, kv, g, dh)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, kh) / math.sqrt(dh)
+    if not (cfg.attn_scores_bf16 and cfg.attn_softcap is None):
+        scores = scores.float()
+    scores = _softcap(scores, cfg.attn_softcap)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", w, vh)
+    return out.reshape(b, sq, h * dh)
+
+
+def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              q_pos: torch.Tensor, k: torch.Tensor | None = None,
+              v: torch.Tensor | None = None,
+              window: int | None = None) -> torch.Tensor:
+    """Causal self-attention over the full sequence.  x: [B, S, D].  If
+    ``k``/``v`` are given, they are :func:`project_kv` of ``x``, already
+    computed; otherwise they are projected here.  The reference's
+    ``cross=True`` (cross-attention and the encoder) belongs to the
+    encoder-decoder, not ported yet."""
+    _check_knobs(cfg)
+    h, dh = cfg.n_heads, cfg.d_head
+    q = x @ p["wq"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    q = rope(q.reshape(*x.shape[:-1], h, dh), q_pos, cfg.rope_theta)
+    if k is None:
+        k, v = project_kv(cfg, p, x, q_pos)
+    mask = _attn_mask(q_pos, q_pos, window)[None, None, None]
+    out = _attend(cfg, q, k, v, mask)
+    return out @ p["wo"].to(x.dtype)
+
+
+def project_qkv_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       pos: int):
+    """Decode-step projections: q [B,1,H,dh] and flat k/v [B,1,KV*dh],
+    RoPE applied at ``pos``."""
+    h, dh = cfg.n_heads, cfg.d_head
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = x @ p["wq"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    q = rope(q.reshape(x.shape[0], 1, h, dh), posv, cfg.rope_theta)
+    k1, v1 = project_kv(cfg, p, x, posv)
+    return q, k1, v1
+
+
+def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos: int, window: int | None = None,
+                     kpos: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor | None]:
+    """One-token decode.  x: [B, 1, D]; cache_[kv]: [B, S, KV*dh] (flat
+    layout); pos: the position; kpos: [S] absolute position per rolling
+    slot (sliding-window only).  Returns (out, cache_k, cache_v, kpos).
+
+    Unlike the reference, which returns updated copies, this writes the
+    new K/V row (and ``kpos``) into the given tensors in place.  The slot
+    is clamped into the cache as ``dynamic_update_slice`` clamps it."""
+    _check_knobs(cfg)
+    s_max = cache_k.shape[1]
+    q, k1, v1 = project_qkv_decode(cfg, p, x, pos)
+    slot = pos % s_max if window is not None else min(max(pos, 0),
+                                                      s_max - 1)
+    cache_k[:, slot] = k1[:, 0]
+    cache_v[:, slot] = v1[:, 0]
+    if window is not None:
+        if kpos is None:
+            raise ValueError("a sliding-window block needs kpos")
+        kpos[slot] = pos
+        valid = (kpos <= pos) & (kpos > pos - window)
+    else:
+        valid = torch.arange(s_max, device=x.device) <= pos
+    mask = valid[None, None, None, None, :]
+    out = _attend(cfg, q, cache_k, cache_v, mask)
+    return out @ p["wo"].to(x.dtype), cache_k, cache_v, kpos
+
+
+# ------------------------------ MLPs ---------------------------------- #
+
+def mlp_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
+             lead: tuple[int, ...] = ()) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {
+        "w_in": _normal((d, f), s_in, cfg, gen, device, lead),
+        "w_out": _normal((f, d), s_out, cfg, gen, device, lead),
+    }
+    if cfg.mlp in ("silu_glu", "geglu"):
+        p["w_gate"] = _normal((d, f), s_in, cfg, gen, device, lead)
+    return p
+
+
+def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["w_in"].to(x.dtype)
+    if cfg.mlp == "silu_glu":
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
+    elif cfg.mlp == "geglu":
+        h = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh") * h
+    elif cfg.mlp == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif cfg.mlp == "relu2":
+        h = torch.square(torch.relu(h))      # squared-ReLU (nemotron)
+    else:
+        raise ValueError(cfg.mlp)
+    return h @ p["w_out"].to(x.dtype)
+
+
+def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
+        capacity_factor: float | None = None) -> torch.Tensor:
+    raise not_ported("layers.moe (mixtral, granite, jamba)")
+
+
+# --------------------------- embeddings -------------------------------- #
+
+def embed_init(cfg: ModelConfig, gen: torch.Generator,
+               device: torch.device) -> Params:
+    vp = padded_vocab(cfg)
+    p = {"tok": _normal((vp, cfg.d_model), 0.02, cfg, gen, device)}
+    if not cfg.tie_embeddings:
+        p["head"] = _normal((cfg.d_model, vp), 1.0 / math.sqrt(cfg.d_model),
+                            cfg, gen, device)
+    return p
+
+
+def embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    x = p["tok"].to(cdtype(cfg))[tokens.long()]
+    if cfg.tie_embeddings:
+        x = x * math.sqrt(cfg.d_model)   # gemma-style scaling
+    return x
+
+
+def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, p["tok"].to(x.dtype))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, p["head"].to(x.dtype))
+    logits = _softcap(logits.float(), cfg.logit_softcap)
+    # mask the vocab-padding logits (Megatron-style padded vocab)
+    vp = logits.shape[-1]
+    if vp != cfg.vocab:
+        pad = torch.arange(vp, device=x.device) >= cfg.vocab
+        logits = torch.where(pad, NEG_INF, logits)
+    return logits

@@ -5,7 +5,8 @@
 * no source of the port (nor ``chip_smoke.py``) imports them;
 * with no CUDA and no ``device`` given, entry points raise;
 * a kernel wrapper given CPU tensors runs its plain version and leaves
-  its launch count at 0.
+  its launch count at 0 (``minp_mask`` included); the serving slice's
+  entry points are covered in ``test_torch_serve.py``.
 """
 
 import ast
@@ -39,9 +40,12 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = list(_modules())
-    for m in ("fused_session", "clutch_merge", "bitserial_cmp",
-              "leaf_gather", "fused_query", "ops"):
-        assert f"repro_torch.kernels.{m}" in mods
+    for m in ("kernels.fused_session", "kernels.clutch_merge",
+              "kernels.bitserial_cmp", "kernels.leaf_gather",
+              "kernels.fused_query", "kernels.ops", "kernels.minp_mask",
+              "configs.registry", "models.layers", "models.lm",
+              "serve.engine", "launch.serve"):
+        assert f"repro_torch.{m}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -87,6 +91,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fused_session.FusedGbdtExec(f, num_chunks=1)
     assert PudSession(device="cpu").device.type == "cpu"
+    logits = np.zeros((2, 5), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.sample_threshold_mask(logits, np.zeros(2, np.float32))
+    assert ops.sample_threshold_mask(logits, np.zeros(2, np.float32),
+                                     device="cpu").device.type == "cpu"
 
 
 def test_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
@@ -109,6 +118,11 @@ def test_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
     assert torch.equal(
         K.gbdt_leafbits_banked(lut[0], masks, gidx, 1, 2),
         ref.gbdt_leafbits_banked_ref(lut[0], masks, gidx, 1, 2))
+    logits = torch.from_numpy(rng.normal(size=(3, 7)).astype(np.float32))
+    tau = logits[:, 2].contiguous()
+    assert torch.equal(K.minp_mask(logits, tau),
+                       ref.minp_mask_ref(logits, tau))
+    assert "minp_mask" in K.KERNELS
     assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
 
 
