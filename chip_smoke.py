@@ -15,8 +15,13 @@ Phases (any failure exits non-zero; none is caught and passed over):
    boundary (chunk values 0 and 2^k - 1, the always-true -1), ragged
    per-column plans, 1-3 compound terms, scalars 0, 2^n - 1, >= 2^31
    and with bits above ``n_bits``, leaf addresses -1 and >= L, logits
-   +-0, +-NaN, +-inf and denormals with V not a multiple of 4; and the
-   comparison front-ends against NumPy.
+   +-0, +-NaN, +-inf and denormals with V not a multiple of 4;
+   ``temporal_encode`` at every chunk width 1-16 (W below, off and, for
+   k <= 8, many times the 32-word tile; values outside ``[0, 2^k)``; an
+   unaligned view), ``gbdt_leafbits_banked`` on random LUTs in both of
+   its layouts (B = 1 and not a multiple of 16, W not a multiple of the
+   word slice, zero masks, indices on the card outside the LUT); and
+   the comparison front-ends against NumPy.
 3. Table path at full width: ``Table.generate(2**25, 32, num_features=8)``
    (33.5M records, 2 shards, 8 chunks of 4 bits: an 8.6 GB LUT) through
    ``PudSession.query`` -- Q1-Q5 and two ``Compound`` shapes, each equal
@@ -41,8 +46,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
    on a decode step's ``[8, 256000]`` logits the kernel equals its
    plain version and the float comparison bit for bit, and 4,096 draws
    land in the kept set.
-7. Time each kernel, its plain version, its bound and, where one
-   PyTorch call computes the same function, that call, at the paths'
+7. Time each kernel (CUDA events around launches, and ``cold_ms``: one
+   launch after an L2 flush), its plain version, its bound and, where
+   one PyTorch call computes the same function, that call, at the paths'
    shapes; print the ``kernels`` JSON line and, last, the ok line.
 
 Launch counts are set to 0 just before each path runs and read just
@@ -190,14 +196,26 @@ def check_kernels(torch) -> int:
         expect(a.shape == b.shape and torch.equal(a.cpu(), b.cpu()), what)
         n_checks += 1
 
-    # temporal_encode: ragged warps (W = 131), W not a power of two
-    for k, w in ((1, 128), (4, 131), (7, 384), (8, 256), (12, 131)):
-        v = rng.integers(0, 1 << k, (w, 32)).astype(np.int32)
-        v[0, 0], v[0, 1] = 0, (1 << k) - 1
-        vt = torch.from_numpy(v).to(cuda)
-        same(K.temporal_encode(vt, k),
-             ref.temporal_encode_ref(vt.reshape(-1), k),
-             f"temporal_encode k={k} W={w}")
+    # temporal_encode at every chunk width: W below one 32-word tile, W
+    # not a multiple of it, and (k <= 8, where the plain version's
+    # [R, 32 W] booleans stay small) W large enough that every warp of
+    # the persistent grid walks several tiles; values below 0 and at or
+    # above 2^k (no plane set / every plane set, as in the plain version)
+    for k in range(1, 17):
+        for w in (5, 45, 1000) + ((300_007,) if k <= 8 else ()):
+            v = rng.integers(0, 1 << k, (w, 32)).astype(np.int32)
+            v[0, :4] = [0, (1 << k) - 1, -5, 1 << k]
+            v[-1, -1] = 2 ** 31 - 1
+            vt = torch.from_numpy(v).to(cuda)
+            same(K.temporal_encode(vt, k),
+                 ref.temporal_encode_ref(vt.reshape(-1), k),
+                 f"temporal_encode k={k} W={w}")
+    # a view that is not 16-byte aligned (the wrapper copies it)
+    flat = torch.from_numpy(rng.integers(0, 16, 1 + 45 * 32).astype(
+        np.int32)).to(cuda)
+    vt = flat[1:].view(45, 32)
+    same(K.temporal_encode(vt, 4), ref.temporal_encode_ref(vt.reshape(-1), 4),
+         "temporal_encode from an unaligned view")
 
     # encode_lut on the card (kernel) == on the CPU (plain version)
     for n_bits, c, n in ((8, 1, 1000), (8, 2, 12001), (16, 4, 4097),
@@ -287,6 +305,29 @@ def check_kernels(torch) -> int:
                                           torch.from_numpy(idx).to(cuda),
                                           gx.num_chunks, 6),
              f"leaf bits with -1 lanes {n_bits}-bit")
+
+    # GBDT leaf bits on random LUTs, both layouts of leafbits_kernel
+    # (fused_query.leafbits_layout): B not a multiple of the 16-instance
+    # group, B = 1, W not a multiple of the 64-word slice, masks zero on
+    # whole slices (skipped features), row indices on the card outside
+    # [0, R) (clamped by the kernel; the plain version is given them
+    # clamped), 2C = 64 index slots, features staged in several passes;
+    # R = 1000 and R = 2000 read their rows from global memory
+    for b, w, r, c, f in ((70, 100, 264, 1, 28), (1, 256, 264, 1, 28),
+                          (37, 33, 1000, 2, 6), (45, 130, 2000, 3, 5),
+                          (200, 64, 40, 32, 2), (300, 70, 50, 2, 40),
+                          (16, 1, 9, 1, 3)):
+        lut = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (r, w))
+                               .astype(np.int32)).to(cuda)
+        masks = rng.integers(-2 ** 31, 2 ** 31, (f + 3, w)).astype(np.int32)
+        masks[:, 64:] = 0
+        masks = torch.from_numpy(masks).to(cuda)
+        idx = torch.from_numpy(rng.integers(-2, r + 2, (b, f * 2 * c))
+                               .astype(np.int32)).to(cuda)
+        same(K.gbdt_leafbits_banked(lut, masks, idx, c, f),
+             ref.gbdt_leafbits_banked_ref(lut, masks, idx.clamp(0, r - 1),
+                                          c, f),
+             f"leaf bits B={b} W={w} R={r} C={c} F={f}")
 
     def agree(ok, what):
         nonlocal n_checks
@@ -876,9 +917,13 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
 
     cuda = torch.device("cuda")
     rows = []
+    # every kernel is also timed alone after an L2 flush (report
+    # "cold_ms", and the row's "cold_ms"): the time its byte bound is for
+    cold = report.setdefault("cold_ms", {})
+    flush = torch.ones(64 << 20, dtype=torch.int32, device=cuda)
 
     def entry(name, got, want, ms, plain_ms, nbytes, nops, extra=None,
-              tol=0, library_ms=None):
+              tol=0, library_ms=None, cold_key=None):
         b_ms, b_by = bound(nbytes, nops)
         err = 0
         for g, w in zip(got, want):
@@ -887,7 +932,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
         src, rep = KERNEL_META[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": err, "ms": ms,
+                     "cold_ms": cold[cold_key or name], "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms})
         if extra:
@@ -900,6 +946,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     r = (1 << k) - 1
     got = K.temporal_encode(vals, k)
     want = ref.temporal_encode_ref(vals.reshape(-1), k)
+    cold["temporal_encode"] = cold_ms(
+        torch, lambda: K.temporal_encode(vals, k), flush)
     entry("temporal_encode", [got], [want],
           median_ms(torch, lambda: K.temporal_encode(vals, k)),
           median_ms(torch, lambda: ref.temporal_encode_ref(
@@ -920,6 +968,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     want = ref.fused_predicate_banked_ref(lut, idx, c, 2, False)
     n_rows = read_rows(idx, c, 2)
     maj_ops = 2 * 2 * (c - 1) * 5 + 2 * 2
+    cold["fused_predicate_banked"] = cold_ms(
+        torch, lambda: K.fused_predicate_banked(lut, didx, c, 2, False), flush)
     entry("fused_predicate_banked", got, want,
           median_ms(torch, lambda: K.fused_predicate_banked(
               lut, didx, c, 2, False)),
@@ -945,6 +995,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     got = K.fused_compound_banked(lut, didx, c, *shape)
     want = ref.fused_compound_banked_ref(lut, idx, c, *shape)
     n_rows = read_rows(idx, c, len(ranges))
+    cold["fused_compound_banked"] = cold_ms(
+        torch, lambda: K.fused_compound_banked(lut, didx, c, *shape), flush)
     entry("fused_compound_banked", got, want,
           median_ms(torch, lambda: K.fused_compound_banked(
               lut, didx, c, *shape)),
@@ -967,6 +1019,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     b, gw = gidx.shape[0], glut.shape[1]
     dram = (glut.numel() + masks.numel() + gidx.numel() + b * gw) * 4
     l2 = b * gw * 4 * f * (2 * gc - 1 + 1)
+    cold["gbdt_leafbits_banked"] = cold_ms(
+        torch, lambda: K.gbdt_leafbits_banked(glut, masks, gidx, gc, f), flush)
     entry("gbdt_leafbits_banked", [got], [want],
           median_ms(torch, lambda: K.gbdt_leafbits_banked(
               glut, masks, gidx, gc, f)),
@@ -976,13 +1030,14 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
           {"lut_shape": list(glut.shape), "masks_shape": list(masks.shape),
            "idx_shape": list(gidx.shape), "dram_bytes": dram,
            "l2_bytes": l2})
+    # the launch's fixed part: the same batch with one feature (the LUT
+    # slices staged, the indices loaded, the whole bitmap written)
+    g1 = gidx[:, :2 * gc].contiguous()
+    report["bounds"]["gbdt_leafbits_banked"]["one_feature_cold_ms"] = cold_ms(
+        torch, lambda: K.gbdt_leafbits_banked(glut, masks, g1, gc, 1), flush)
 
     # The front-end path's kernels, at its shapes: CUDA events around
-    # batches of 10 launches, since several bounds are a few microseconds;
-    # several inputs fit the 50 MB L2, so each kernel is also timed alone
-    # after an L2 flush (report "cold_ms"), the time its byte bound is for.
-    cold = report.setdefault("cold_ms", {})
-    flush = torch.ones(64 << 20, dtype=torch.int32, device=cuda)
+    # batches of 10 launches, since several bounds are a few microseconds.
 
     def kernel_ms(name, fn):
         cold[name] = cold_ms(torch, fn, flush)
@@ -1029,10 +1084,12 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
             entry("clutch_merge", [got], [want], clutch_ms, clutch_plain,
                   clutch_bytes, clutch_ops,
                   {"lut_words": w, "plan": [n_bits, c], "a": a,
-                   "rows_read": n_rows})
+                   "rows_read": n_rows},
+                  cold_key=f"clutch_merge {n_bits}/{c}")
             entry("bitserial_cmp", [bgot], [bwant], bs_ms, bs_plain,
                   bs_bytes, bs_ops,
-                  {"planes_shape": list(planes.shape), "a": a})
+                  {"planes_shape": list(planes.shape), "a": a},
+                  cold_key=f"bitserial_cmp {n_bits}")
         del planes, vt
     report["clutch_vs_bitserial"] = ratios
 
@@ -1050,7 +1107,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
                     lambda: K.clutch_merge_banked(luts, blt, ble)),
           plain(lambda: ref.clutch_merge_banked_ref(luts, blt, ble)),
           (n_rows + b) * w * 4 + blt.numel() * 8, b * w * 5 * 4,
-          {"lut_shape": list(luts.shape), "rows_read": n_rows})
+          {"lut_shape": list(luts.shape), "rows_read": n_rows},
+          cold_key="clutch_merge_banked 32/5")
     del luts
 
     # fused_range_count: Q1's range on column 0, 32 bits / 8 chunks
@@ -1069,7 +1127,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
                     lambda: K.fused_range_count(lut, lut_c, didx, 8)),
           plain(lambda: ref.fused_range_count_ref(lut, lut_c, idx, 8)),
           (n_rows + 1) * w * 4 + idx.nbytes, w * (2 * 5 * 7 + 2),
-          {"lut_shape": list(lut.shape), "rows_read": n_rows})
+          {"lut_shape": list(lut.shape), "rows_read": n_rows},
+          cold_key="fused_range_count 32/8")
     del vt, lut, lut_c
 
     # leaf_gather: the GBDT path's [65536, 1000] leaf addresses
@@ -1092,6 +1151,7 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
           (b * t + t * nl + b) * 4, b * t,
           {"addrs_shape": [b, t], "leaves_shape": [t, nl],
            "library_max_abs_err": lib_err},
+          cold_key="leaf_gather",
           tol=LEAF_TOL, library_ms=lib_ms)
 
     # minp_mask: the LM path's [8, 256000] decode-step logits, and 16
@@ -1123,7 +1183,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
           {"logits_shape": [b, v], "chunks": [8, 8, 8, 8],
            "ops_counted": "per element: 6 per chunk, 4 for the map and "
                           "the select"},
-          library_ms=main_path["library_ms"])
+          library_ms=main_path["library_ms"],
+          cold_key=f"minp_mask {LM_SLOTS}x{v}")
     return rows
 
 

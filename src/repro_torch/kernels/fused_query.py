@@ -41,6 +41,23 @@ from .ref import (
 
 MAX_TERMS = 32          # csrc/fused_query.cu :: MAX_TERMS
 MAX_SMEM_IDX = 12288    # 48 KB of int32 indices staged per block
+# csrc/fused_query.cu :: leafbits_kernel: warps per block, instances per
+# warp group, index slots per instance staged at once, words of
+# live-feature bits, words of a block's slice
+LEAF_WARPS, LEAF_GROUP, LEAF_SLOTS, LEAF_LIVE, LEAF_SLICE = 8, 16, 64, 192, 64
+SMEM_PER_BLOCK = 232448     # shared memory one block may have on Hopper
+
+
+def leafbits_layout(rows: int) -> tuple[bool, int]:
+    """Whether ``leafbits_kernel`` stages the rows of a LUT of ``rows``
+    rows in shared memory (a block's 64-word slice of every row, beside
+    the index buffers and the live-feature bits) or reads them from
+    global memory, and the shared bytes a block takes."""
+    fixed = (LEAF_WARPS * LEAF_GROUP * LEAF_SLOTS + LEAF_LIVE) * 4
+    staged = rows * LEAF_SLICE * 4 + fixed
+    if staged <= SMEM_PER_BLOCK:
+        return True, staged
+    return False, fixed
 
 
 def _compound(lut, idx, num_chunks, term_ranges, term_disj, conn_disj):
@@ -183,9 +200,10 @@ def gbdt_leafbits_banked(lut: torch.Tensor, masks: torch.Tensor, idx,
     out = torch.empty((b, w), dtype=torch.int32, device=lut.device)
     lib = _build.load("fused_query")
     stream = torch.cuda.current_stream(lut.device).cuda_stream
+    smem_rows, _ = leafbits_layout(r)
     err = lib.leafbits_launch(
         lut.data_ptr(), masks.data_ptr(), idx.data_ptr(), num_chunks,
-        num_features, b, r, w, out.data_ptr(), stream)
+        num_features, b, r, w, int(smem_rows), out.data_ptr(), stream)
     _build.check(lib, err, "fused_query.leafbits_kernel")
     gbdt_leafbits_banked.launches += 1
     return out

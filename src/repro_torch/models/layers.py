@@ -14,7 +14,9 @@ tensor functions over explicit parameter dicts, with the same layouts:
 
 Casts sit where the reference's sit: the score einsum runs in the
 compute dtype and is divided by sqrt(dh) before the float32 cast; RoPE's
-float32 cos/sin promote a bf16 input before the cast back.  Every
+float32 cos/sin promote a bf16 input before the cast back.  A Python
+float that meets a bf16 tensor is first rounded to bf16, as JAX rounds a
+weakly typed scalar (:func:`weak_scalar`).  Every
 ``*_init`` draws from an explicit ``torch.Generator`` with the
 reference's scales.  Not ported yet (``ROADMAP.md`` Queue 1, "the
 modules still missing"): ``moe``, and the knobs ``attn_shard_heads``,
@@ -23,6 +25,7 @@ modules still missing"): ``moe``, and the knobs ``attn_shard_heads``,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -119,6 +122,27 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(value: float, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def weak_scalar(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``x``'s dtype and device, for an op
+    that JAX writes as ``x <op> python_float``: JAX rounds the weakly
+    typed scalar to the array's dtype first (``bf16 / math.sqrt(128)``
+    divides by 11.3125), where PyTorch would apply the full float in
+    float32 opmath -- and on the card turn a division by a host scalar
+    into a product with its reciprocal.  In float32 nothing changes."""
+    return _constant(float(value), x.dtype, x.device)
+
+
+def scale_scores(scores: torch.Tensor, dh: int) -> torch.Tensor:
+    """Attention scores divided by sqrt(dh) in their own dtype."""
+    return scores / weak_scalar(scores, math.sqrt(dh))
+
+
 def _softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
@@ -165,7 +189,7 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
     kh = k_flat.reshape(b, -1, kv, dh)
     vh = v_flat.reshape(b, -1, kv, dh)
     qg = q.reshape(b, sq, kv, g, dh)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, kh) / math.sqrt(dh)
+    scores = scale_scores(torch.einsum("bskgh,btkh->bkgst", qg, kh), dh)
     if not (cfg.attn_scores_bf16 and cfg.attn_softcap is None):
         scores = scores.float()
     scores = _softcap(scores, cfg.attn_softcap)
@@ -295,7 +319,7 @@ def embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor
           ) -> torch.Tensor:
     x = p["tok"].to(cdtype(cfg))[tokens.long()]
     if cfg.tie_embeddings:
-        x = x * math.sqrt(cfg.d_model)   # gemma-style scaling
+        x = x * weak_scalar(x, math.sqrt(cfg.d_model))   # gemma-style
     return x
 
 

@@ -145,6 +145,23 @@ def test_gbdt_leafbits_banked_ref_matches_jax(chunks, features, batch):
     np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("rows,smem_rows", [
+    (264, True),        # the GBDT path: 1000 trees, 8 bits, one chunk
+    (777, True),        # the tallest LUT whose 64-word slice fits
+    (778, False),       # rows read from global memory
+    (131074, False),
+])
+def test_leafbits_layout_follows_the_shared_memory_fit(rows, smem_rows):
+    from repro_torch.kernels import fused_query as fq
+
+    staged, nbytes = fq.leafbits_layout(rows)
+    assert staged == smem_rows
+    fixed = (fq.LEAF_WARPS * fq.LEAF_GROUP * fq.LEAF_SLOTS
+             + fq.LEAF_LIVE) * 4
+    assert nbytes == (rows * fq.LEAF_SLICE * 4 if staged else 0) + fixed
+    assert nbytes <= fq.SMEM_PER_BLOCK
+
+
 # ------------------------------ bit helpers ------------------------------- #
 
 def test_torch_bit_helpers_match_numpy():

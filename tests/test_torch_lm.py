@@ -10,6 +10,7 @@ Decode against the full forward is held within 2e-2, as
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -196,6 +197,60 @@ def test_bf16_layers_cast_where_jax_casts():
     # logits are bf16-rounded in lm_head (ulp 2^-5 at magnitudes 4-8)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=4 * 2.0 ** -5 * max(1.0, np.abs(want).max() / 8))
+
+
+def _bf16_cfg(arch: str, **widths):
+    return dataclasses.replace(jget_config(arch).reduced(),
+                               param_dtype="bfloat16",
+                               compute_dtype="bfloat16", **widths)
+
+
+@pytest.mark.parametrize("site,width", [("scores", 128), ("scores", 96),
+                                        ("embed", 72), ("embed", 4608)])
+def test_bf16_scalars_round_as_jax_rounds_them(site, width):
+    """JAX rounds a weakly typed Python scalar to the array's dtype before
+    the op (sqrt(128) -> 11.3125, sqrt(72) -> 8.5 in bf16); the port's two
+    sites do the same, so their bf16 outputs equal JAX's bit for bit.
+    Widths whose square root is not a bf16 value show the difference; the
+    reduced configs' 16 and 64 do not."""
+    rng = np.random.default_rng(width)
+    if site == "scores":
+        x = rng.normal(size=100_000).astype(jnp.bfloat16)
+        # the reference's expression, src/repro/models/layers.py _attend
+        want = np.asarray(jnp.asarray(x) / math.sqrt(width))
+        got = L.scale_scores(torch.from_numpy(x.view(np.int16))
+                             .view(torch.bfloat16), width)
+    else:
+        cfg = _bf16_cfg("gemma2-27b", d_model=width)
+        assert cfg.tie_embeddings
+        tok = (rng.normal(size=(L.padded_vocab(cfg), width)) * 0.02
+               ).astype(jnp.bfloat16)
+        toks = _tokens(cfg, 4, 25, seed=width)
+        want = np.asarray(JL.embed(cfg, {"tok": jnp.asarray(tok)},
+                                   jnp.asarray(toks)))
+        got = L.embed(cfg, {"tok": torch.from_numpy(tok.view(np.int16))
+                            .view(torch.bfloat16)}, torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  want.view(np.int16))
+
+
+@pytest.mark.parametrize("seed", [5, 7])
+def test_bf16_forward_logits_with_unrounded_widths(seed):
+    """bf16 forward of reduced gemma2 (tied embeddings, softcaps) at
+    d_head 128 and d_model 72, whose square roots JAX rounds to bf16.
+    Measured on the CPU: the largest gap to JAX was 0.084 (seed 5) and
+    0.106 (seed 7) with the scalars unrounded, 0.044 and 0.041 with them
+    rounded; the rest is other bf16 roundings.  Tolerance 2^-4: 8 bf16
+    ulps at the logits' magnitude of 1-2."""
+    cfg = _bf16_cfg("gemma2-27b", d_head=128, d_model=72)
+    jp = JM.init_params(cfg, jax.random.PRNGKey(seed))
+    tp = convert.lm_params(jax.tree.map(np.asarray, jp))
+    toks = _tokens(cfg, 2, 12, seed=seed)
+    want = np.asarray(JM.forward_logits(cfg, jp, {"tokens": jnp.asarray(toks)}))
+    got = M.forward_logits(cfg, tp, {"tokens": torch.from_numpy(toks)})
+    assert np.abs(want).max() < 2
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2.0 ** -4)
 
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
