@@ -20,8 +20,13 @@ Phases (any failure exits non-zero; none is caught and passed over):
    k <= 8, many times the 32-word tile; values outside ``[0, 2^k)``; an
    unaligned view), ``gbdt_leafbits_banked`` on random LUTs in both of
    its layouts (B = 1 and not a multiple of 16, W not a multiple of the
-   word slice, zero masks, indices on the card outside the LUT); and
-   the comparison front-ends against NumPy.
+   word slice, zero masks, indices on the card outside the LUT);
+   ``leaf_gather`` at B 1, 31, 33, 2^16 + 5 by T 1-1001 (ragged rows)
+   by L 1, 2, 64, with L 65 and 128 (leaves read through L1), each
+   route and an unaligned view bit-equal; ``minp_mask`` at one element,
+   rows spanning many tiles with V % 4 = 1, 2, 3, B = 128 and 70,000
+   rows of 3, for every chunking; and the comparison front-ends against
+   NumPy.
 3. Table path at full width: ``Table.generate(2**25, 32, num_features=8)``
    (33.5M records, 2 shards, 8 chunks of 4 bits: an 8.6 GB LUT) through
    ``PudSession.query`` -- Q1-Q5 and two ``Compound`` shapes, each equal
@@ -49,7 +54,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
 7. Time each kernel (CUDA events around launches, and ``cold_ms``: one
    launch after an L2 flush), its plain version, its bound and, where
    one PyTorch call computes the same function, that call, at the paths'
-   shapes; print the ``kernels`` JSON line and, last, the ok line.
+   shapes; for ``minp_mask`` also the floor of a pass over the same
+   bytes (``y.copy_(x)``, cold) and both warm (logits in L2); print the
+   ``kernels`` JSON line and, last, the ok line.
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -125,8 +132,13 @@ DECODE_TOL, DECODE_MEAN_TOL = 2.0 ** -4, 2.0 ** -6
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
                      np.float32)
+# and the boundaries of the kernel's tiling (tiles of 4,096 floats inside
+# a row, a persistent grid): one element; rows spanning many tiles with
+# V % 4 = 1, 2, 3 (rows off the 16-byte grid); B > 8 (the [128, 256000]
+# batch phase 7 times); many rows of a few elements
 MINP_EDGE_SHAPES = ((1, 100), (4, 1024), (8, 50000), (3, 7), (5, 301),
-                    (2, 1), (16, 2050))
+                    (2, 1), (16, 2050), (1, 1), (7, 300001), (9, 99998),
+                    (3, 1234567), (128, 256000), (70000, 3))
 
 
 def expect(ok: bool, what: str) -> None:
@@ -185,6 +197,7 @@ def check_kernels(torch) -> int:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.common import unpack_bits_torch
     from repro_torch.kernels.fused_session import FusedGbdtExec, FusedTableExec
+    from repro_torch.kernels.leaf_gather import route as leaf_route
 
     cuda = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -395,21 +408,60 @@ def check_kernels(torch) -> int:
             agree(int(got[1]) == int(((v > x0) & (v < x1)).sum()),
                   f"range_count vs NumPy {n_bits} ({x0}, {x1})")
 
-    # leaf_gather: B and T not multiples of 8 or 32, addresses -1 and >= L
-    for b, t, depth in ((33, 7, 5), (1000, 130, 6), (77, 1000, 6)):
-        nl = 1 << depth
-        addrs = rng.integers(-1, nl + 3, (b, t)).astype(np.int32)
-        addrs[0], addrs[1] = -1, nl
-        at = torch.from_numpy(addrs).to(cuda)
-        lv = torch.from_numpy(rng.normal(size=(t, nl)).astype(np.float32)
-                              ).to(cuda)
+    # leaf_gather at the boundaries of its tiling (one lane per instance,
+    # 256 instances a block, 32-tree tiles): B below, at and past a warp
+    # and past a block; T below, at, off and past the tile and the 4-tree
+    # chunk (T % 4 != 0 takes the 4-byte route); L = 1, 2 and 64 (leaves
+    # staged) and 65, 128 (leaves through L1); and the three shapes held
+    # here before (L = 32 among them).  Each case: within
+    # LEAF_TOL of the plain version, two launches bit-equal, and
+    # addresses -1 and >= L add nothing (with B >= 3 rows 0 and 1 are all
+    # -1 and all L; every out-of-range address swapped for another leaves
+    # the bits).
+    g = torch.Generator(cuda).manual_seed(0)
+    big = 2 ** 16 + 5
+    cases = [(b, t, nl) for nl in (1, 2, 64) for t in (1, 3, 4, 5, 7, 130,
+                                                        1000, 1001)
+             for b in (1, 31, 33, big)]
+    cases += [(33, 7, 65), (big, 130, 65), (31, 1000, 128), (77, 1001, 128),
+              (33, 7, 32), (1000, 130, 64), (77, 1000, 64)]
+    for b, t, nl in cases:
+        at = torch.randint(-1, nl + 3, (b, t), generator=g, device=cuda,
+                           dtype=torch.int32)
+        if b >= 3:
+            at[0], at[1] = -1, nl
+        lv = torch.randn((t, nl), generator=g, device=cuda)
         got = K.leaf_gather(at, lv)
         err = max_abs_err(torch, got, ref.leaf_gather_ref(at, lv))
-        agree(err <= LEAF_TOL, f"leaf_gather {b}x{t}: {err}")
+        what = f"leaf_gather B={b} T={t} L={nl}"
+        agree(err <= LEAF_TOL, f"{what}: {err}")
         agree(torch.equal(got, K.leaf_gather(at, lv)),
-              f"leaf_gather {b}x{t}: two launches differ")
-        agree(float(got[0]) == 0.0 and float(got[1]) == 0.0,
-              f"leaf_gather {b}x{t}: addresses -1 and >= L add nothing")
+              f"{what}: two launches differ")
+        swapped = torch.where(at < 0, nl + 7, torch.where(at >= nl, -1, at))
+        agree(same_bits(torch, K.leaf_gather(swapped, lv), got)
+              and (b < 3 or float(got[0]) == float(got[1]) == 0.0),
+              f"{what}: addresses -1 and >= L add something")
+        del at, swapped
+    # the routes give the same bits: the 4-byte route on an unaligned view
+    # of aligned rows, and the leaves read through L1 (one zero column
+    # more: L = 65) against staged
+    for b, t in ((33, 1000), (big, 1000), (300, 4)):
+        at = torch.randint(-1, 65, (b, t), generator=g, device=cuda,
+                           dtype=torch.int32)
+        lv = torch.randn((t, 64), generator=g, device=cuda)
+        want = K.leaf_gather(at, lv)
+        flat = torch.empty(b * t + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = at.reshape(-1)
+        view = flat[1:].view(b, t)
+        agree(leaf_route(t, 64, at.data_ptr()) == (True, True)
+              and leaf_route(t, 64, view.data_ptr()) == (False, True),
+              f"leaf_gather routes B={b} T={t}")
+        agree(same_bits(torch, K.leaf_gather(view, lv), want),
+              f"leaf_gather B={b} T={t}: 4-byte route on an unaligned view")
+        lv65 = torch.nn.functional.pad(lv, (0, 1))
+        agree(same_bits(torch, K.leaf_gather(at, lv65), want),
+              f"leaf_gather B={b} T={t}: leaves through L1 vs staged")
+        del at, flat, view
 
     # minp_mask: +-0, +-NaN, +-inf, denormals, tau equal to a logit; V not
     # a multiple of 4 (rows off the 16-byte grid), an unaligned view, and
@@ -876,6 +928,27 @@ def cold_ms(torch, fn, flush, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def warm_ms(torch, fn, touch, reps: int = 20) -> float:
+    """Median time of one launch on inputs in L2: ``touch`` reads them
+    first (as ``amax`` reads the logits right before the mask on the LM
+    path).  A busy wait on the card ahead of both keeps the host's
+    wrapper time out of the event pair, so the events see the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        touch()
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -913,6 +986,7 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     import repro_torch.kernels as K
     from repro_torch.core.encoding import make_plan
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.leaf_gather import route as leaf_route
     from repro_torch.pud import queries as Q
 
     cuda = torch.device("cuda")
@@ -1150,12 +1224,17 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
           plain(lambda: ref.leaf_gather_ref(at, lv)),
           (b * t + t * nl + b) * 4, b * t,
           {"addrs_shape": [b, t], "leaves_shape": [t, nl],
+           "route_vec_staged": list(leaf_route(t, nl, at.data_ptr())),
+           # the floor of one pass over the addresses: a PyTorch max
+           "addrs_read_cold_ms": cold_ms(torch, lambda: at.max(), flush),
            "library_max_abs_err": lib_err},
           cold_key="leaf_gather",
           tol=LEAF_TOL, library_ms=lib_ms)
 
     # minp_mask: the LM path's [8, 256000] decode-step logits, and 16
-    # copies of them as a [128, 256000] batch (report)
+    # copies of them as a [128, 256000] batch (report).  Beside the
+    # kernel: the floor of a pass over the same bytes (y.copy_(x), cold),
+    # and both warm, with the logits in L2 as amax leaves them on the path
     def library(x, t):
         return torch.where(x >= t[:, None], x, ref.MINP_FILL)
 
@@ -1163,6 +1242,7 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     for reps in (16, 1):
         x = lm_logits.repeat(reps, 1).contiguous()
         t = lm_tau.repeat(reps)
+        y = torch.empty_like(x)
         b, v = x.shape
         got, want = K.minp_mask(x, t), ref.minp_mask_ref(x, t)
         expect(same_bits(torch, got, want), f"minp_mask {b}x{v} bits")
@@ -1170,19 +1250,33 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
         lib_ms = median_ms(torch, lambda: library(x, t), batch=10)
         cold[f"torch.where {b}x{v}"] = cold_ms(torch, lambda: library(x, t),
                                                flush)
+        cold[f"copy_ {b}x{v}"] = cold_ms(torch, lambda: y.copy_(x), flush)
         minp[f"{b}x{v}"] = {
             "ms": ms, "cold_ms": cold[f"minp_mask {b}x{v}"],
+            "warm_ms": warm_ms(torch, lambda: K.minp_mask(x, t),
+                               lambda: x.amax(-1)),
+            "copy_cold_ms": cold[f"copy_ {b}x{v}"],
+            # an empty launch (a spin of 0 cycles) timed the same way:
+            # the part of every cold time that is not the kernel's work
+            "empty_launch_cold_ms": cold_ms(
+                torch, lambda: torch.cuda._sleep(0), flush),
+            "copy_warm_ms": warm_ms(torch, lambda: y.copy_(x),
+                                    lambda: x.amax(-1)),
             "plain_ms": plain(lambda: ref.minp_mask_ref(x, t)),
             "library_ms": lib_ms,
             "library_cold_ms": cold[f"torch.where {b}x{v}"],
             "bound_ms": bound(2 * b * v * 4 + 4 * b, 0)[0]}
+        del y
     report["minp_mask"] = minp
     main_path = minp[f"{LM_SLOTS}x{v}"]
     entry("minp_mask", [got], [want], main_path["ms"], main_path["plain_ms"],
-          2 * b * v * 4 + 4 * b, b * v * (6 * 4 + 4),
+          2 * b * v * 4 + 4 * b, b * v * 5,
           {"logits_shape": [b, v], "chunks": [8, 8, 8, 8],
-           "ops_counted": "per element: 6 per chunk, 4 for the map and "
-                          "the select"},
+           "ops_counted": "per element: 3 for the map (shift, or, xor), "
+                          "1 compare, 1 select",
+           **{k: main_path[k] for k in ("warm_ms", "copy_cold_ms",
+                                        "copy_warm_ms",
+                                        "empty_launch_cold_ms")}},
           library_ms=main_path["library_ms"],
           cold_key=f"minp_mask {LM_SLOTS}x{v}")
     return rows

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_U64, _F = ctypes.c_ulonglong, ctypes.c_float
+_F = ctypes.c_float
 #: C entry points per source, with their argument types (every pointer
 #: and the stream as ``c_void_p``, so no pointer is cut to 32 bits).
 SIGNATURES = {
@@ -50,10 +50,10 @@ SIGNATURES = {
         "bitserial_launch": [_P, _I, _U, _I, _P, _P],
     },
     "leaf_gather": {
-        "leaf_gather_launch": [_P, _P, _I, _I, _I, _P, _P],
+        "leaf_gather_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     },
     "minp_mask": {
-        "minp_mask_launch": [_P, _P, _I, _I, _U64, _I, _F, _P, _P],
+        "minp_mask_launch": [_P, _P, _I, _I, _F, _P, _P],
     },
 }
 

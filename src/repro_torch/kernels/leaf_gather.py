@@ -18,6 +18,22 @@ from . import _build
 from .common import on_card
 from .ref import leaf_gather_ref
 
+#: the most leaves per tree the kernel stages in shared memory beside the
+#: addresses (``MAX_STAGED_L`` in ``csrc/leaf_gather.cu``): depth 6
+MAX_STAGED_LEAVES = 64
+_MAX_DIM = 2 ** 31 - 1       # B, T and L are C ints in the kernel
+
+
+def route(t: int, n_leaves: int, addrs_ptr: int) -> tuple[bool, bool]:
+    """The kernel's route for ``[B, t]`` addresses at ``addrs_ptr`` and
+    ``n_leaves`` leaves per tree: ``(vec, staged)``.  ``vec``: every row
+    starts on a 16-byte boundary (``t % 4 == 0`` and an aligned base), so
+    the addresses are copied 16 bytes a lane, else 4.  ``staged``: each
+    tile's leaf rows fit beside its addresses in shared memory, else the
+    leaves are read from the table through L1.  Both routes of each
+    choice give the same bits."""
+    return t % 4 == 0 and addrs_ptr % 16 == 0, n_leaves <= MAX_STAGED_LEAVES
+
 
 def leaf_gather(addrs: torch.Tensor, leaves: torch.Tensor) -> torch.Tensor:
     """addrs: [B, T] int32 leaf address per (instance, tree); leaves:
@@ -36,12 +52,17 @@ def leaf_gather(addrs: torch.Tensor, leaves: torch.Tensor) -> torch.Tensor:
                          "rows of leaves")
     if not on_card(addrs, leaves):
         return leaf_gather_ref(addrs, leaves)
+    nl = leaves.shape[1]
+    if max(b, t, nl) > _MAX_DIM:
+        raise ValueError(f"[{b}, {t}] addresses and {nl} leaves; the kernel "
+                         f"takes at most {_MAX_DIM} of each")
     addrs, leaves = addrs.contiguous(), leaves.contiguous()
+    vec, staged = route(t, nl, addrs.data_ptr())
     out = torch.empty((b,), dtype=torch.float32, device=addrs.device)
     lib = _build.load("leaf_gather")
     stream = torch.cuda.current_stream(addrs.device).cuda_stream
     err = lib.leaf_gather_launch(addrs.data_ptr(), leaves.data_ptr(), b, t,
-                                 leaves.shape[1], out.data_ptr(), stream)
+                                 nl, vec, staged, out.data_ptr(), stream)
     _build.check(lib, err, "leaf_gather")
     leaf_gather.launches += 1
     return out

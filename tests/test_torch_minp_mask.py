@@ -158,6 +158,78 @@ def test_the_two_documented_differences_from_the_float_oracle():
     np.testing.assert_array_equal(_bits(got), _bits(oracle))
 
 
+# the chunkings of chip_smoke.py's phase 2, then more drawn from a seeded
+# generator: 32 bits cut at 1-7 random points (the wrapper takes 1-8
+# chunks)
+PHASE2_CHUNKINGS = [(8, 8, 8, 8), (16, 16), (32,), (4,) * 8, (5, 7, 9, 11)]
+
+
+def _drawn_chunkings(n: int, seed: int = 17) -> list[tuple[int, ...]]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        cuts = np.sort(rng.choice(np.arange(1, 32), size=rng.integers(1, 8),
+                                  replace=False))
+        out.append(tuple(int(k) for k in np.diff(np.r_[0, cuts, 32])))
+    return out
+
+
+def _pattern_batch(rng, b: int, v: int):
+    """[b, v] float32 logits that are uniform random uint32 bit patterns
+    (NaNs with payloads, infinities, denormals and -0.0 all occur or are
+    planted), every row holding the edge values; taus drawn from the same
+    patterns, then the edge values themselves."""
+    x = rng.integers(0, 2 ** 32, (b, v), dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    x[:, :EDGE.size] = EDGE
+    x[:, EDGE.size] = np.uint32(0x7FC00001).view(np.float32)    # +NaN, payload
+    x[:, EDGE.size + 1] = np.uint32(0xFF800001).view(np.float32)  # -sNaN
+    tau = x[np.arange(b), rng.integers(0, v, b)].copy()
+    n = min(b, EDGE.size)
+    tau[:n] = EDGE[:n]
+    return x, tau
+
+
+def _one_compare(logits: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """The kernel's form of the mask: one unsigned compare of the images."""
+    xu = common.float_to_monotonic_u32(logits).to(torch.int64) & 0xFFFFFFFF
+    tu = common.float_to_monotonic_u32(tau).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(xu >= tu[:, None], logits, ref.MINP_FILL)
+
+
+@pytest.mark.parametrize("chunks", PHASE2_CHUNKINGS + _drawn_chunkings(5))
+def test_recurrence_equals_one_compare_bit_for_bit(chunks):
+    """The claim the kernel rests on: for any chunking whose widths sum
+    to 32, the Clutch recurrence of the plain version gives m(x) >= m(tau),
+    one unsigned compare, bit for bit, over 2^20 random bit patterns and
+    the edge values, against taus drawn from the same patterns."""
+    assert sum(chunks) == 32
+    x, tau = _pattern_batch(np.random.default_rng(len(chunks)), 64, 2 ** 14)
+    xt, tt = torch.from_numpy(x), torch.from_numpy(tau)
+    want = _one_compare(xt, tt)
+    np.testing.assert_array_equal(_bits(ref.minp_mask_ref(xt, tt, chunks)),
+                                  _bits(want))
+    np.testing.assert_array_equal(_bits(K.minp_mask(xt, tt, chunks)),
+                                  _bits(want))
+    # both outcomes occur, and NaN payloads pass through unchanged
+    kept = _bits(want) != _bits(np.float32(ref.MINP_FILL))
+    assert 0 < kept.sum() < kept.size
+    nan = np.isnan(x)
+    assert (_bits(want)[nan & kept] == _bits(x)[nan & kept]).all()
+
+
+@pytest.mark.parametrize("chunks", PHASE2_CHUNKINGS + _drawn_chunkings(2))
+def test_one_compare_matches_jax_kernel_on_bit_patterns(chunks):
+    """On a small batch of the same patterns, the Pallas kernel in
+    interpret mode, the port's recurrence and the one compare agree."""
+    x, tau = _pattern_batch(np.random.default_rng(99), 4, 300)
+    want = _bits(_jax_mask(x, tau, chunks=chunks))
+    xt, tt = torch.from_numpy(x), torch.from_numpy(tau)
+    np.testing.assert_array_equal(_bits(ref.minp_mask_ref(xt, tt, chunks)),
+                                  want)
+    np.testing.assert_array_equal(_bits(_one_compare(xt, tt)), want)
+
+
 def test_wrapper_on_cpu_counts_no_launch_and_checks_its_inputs():
     K.reset_launch_counts()
     x = torch.zeros((2, 5))
@@ -168,6 +240,10 @@ def test_wrapper_on_cpu_counts_no_launch_and_checks_its_inputs():
         K.minp_mask(x, t, chunks=(8, 8, 8))
     with pytest.raises(ValueError, match="chunks"):
         K.minp_mask(x, t, chunks=(4,) * 7 + (2, 2))
+    # the kernel no longer reads the chunking; the wrapper still checks it
+    for bad in ((0, 32), (33,), (40, -8), ()):
+        with pytest.raises(ValueError, match="chunks"):
+            K.minp_mask(x, t, chunks=bad)
     with pytest.raises(ValueError, match="logits"):
         K.minp_mask(x.double(), t)
     with pytest.raises(ValueError, match="tau"):
