@@ -20,13 +20,21 @@ Phases (any failure exits non-zero; none is caught and passed over):
    k <= 8, many times the 32-word tile; values outside ``[0, 2^k)``; an
    unaligned view), ``gbdt_leafbits_banked`` on random LUTs in both of
    its layouts (B = 1 and not a multiple of 16, W not a multiple of the
-   word slice, zero masks, indices on the card outside the LUT);
+   word slice, zero masks, indices on the card outside the LUT, 12,864
+   indices an instance);
    ``leaf_gather`` at B 1, 31, 33, 2^16 + 5 by T 1-1001 (ragged rows)
    by L 1, 2, 64, with L 65 and 128 (leaves read through L1), each
    route and an unaligned view bit-equal; ``minp_mask`` at one element,
    rows spanning many tiles with V % 4 = 1, 2, 3, B = 128 and 70,000
-   rows of 3, for every chunking; and the comparison front-ends against
-   NumPy.
+   rows of 3, for every chunking; the row gather of ``clutch_merge``,
+   ``clutch_merge_banked`` and the compound kernel at every templated
+   chunk count (1, 5, 8) and the generic one (2, 3, 4, 6, 16), with
+   16-byte and 4-byte row loads (W % 4 != 0, a LUT view one word off),
+   repeated rows and steps with lt == le, 70,000 banks of a narrow LUT,
+   compounds of 40 terms, of more than 12,288 row indices (once the
+   limit of the card) and of 1,000 terms (the term program in device
+   memory);
+   and the comparison front-ends against NumPy.
 3. Table path at full width: ``Table.generate(2**25, 32, num_features=8)``
    (33.5M records, 2 shards, 8 chunks of 4 bits: an 8.6 GB LUT) through
    ``PudSession.query`` -- Q1-Q5 and two ``Compound`` shapes, each equal
@@ -55,8 +63,12 @@ Phases (any failure exits non-zero; none is caught and passed over):
    launch after an L2 flush), its plain version, its bound and, where
    one PyTorch call computes the same function, that call, at the paths'
    shapes; for ``minp_mask`` also the floor of a pass over the same
-   bytes (``y.copy_(x)``, cold) and both warm (logits in L2); print the
-   ``kernels`` JSON line and, last, the ok line.
+   bytes (``y.copy_(x)``, cold) and both warm (logits in L2), for the
+   merges and predicates the floor of one pass over the rows they read
+   (``x.amax(dim=0)`` over a contiguous ``[rows, words]`` tensor, cold),
+   and the predicate and compound timed again on the LUT and on a fresh
+   copy of it (``cold_ms_again``, ``cold_ms_fresh_lut``);
+   print the ``kernels`` JSON line and, last, the ok line.
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -195,7 +207,7 @@ def check_kernels(torch) -> int:
     from repro_torch.apps.predicate import Table
     from repro_torch.core.encoding import ColumnPlan, make_plan
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.common import unpack_bits_torch
+    from repro_torch.kernels.common import quad_rows, unpack_bits_torch
     from repro_torch.kernels.fused_session import FusedGbdtExec, FusedTableExec
     from repro_torch.kernels.leaf_gather import route as leaf_route
 
@@ -208,6 +220,19 @@ def check_kernels(torch) -> int:
         torch.cuda.synchronize()
         expect(a.shape == b.shape and torch.equal(a.cpu(), b.cpu()), what)
         n_checks += 1
+
+    def agree(ok, what):
+        nonlocal n_checks
+        expect(ok, what)
+        n_checks += 1
+
+    def random_terms(n_terms, one_range=False):
+        """A compound shape: 1-2 ranges a term (one with ``one_range``),
+        random AND/OR within and between the terms."""
+        tr = (1,) * n_terms if one_range else tuple(
+            int(x) for x in rng.integers(1, 3, n_terms))
+        return (tr, tuple(bool(x) for x in rng.integers(0, 2, n_terms)),
+                tuple(bool(x) for x in rng.integers(0, 2, n_terms - 1)))
 
     # temporal_encode at every chunk width: W below one 32-word tile, W
     # not a multiple of it, and (k <= 8, where the plain version's
@@ -294,6 +319,79 @@ def check_kernels(torch) -> int:
                                              *shape)
         same(got[0], want[0], "compound bitmap, random rows")
         same(got[1], want[1], "compound count, random rows")
+        # 40 terms (beyond the former limit of 32); at 32 bits / 8 chunks
+        # also 400 terms (12,800 indices, beyond the former 12,288) and
+        # 1,000 terms (the term program read from device memory)
+        for n_terms, one_range in ((40, False), (400, True), (1000, True)):
+            if one_range and c != 8:
+                continue
+            shape = random_terms(n_terms, one_range)
+            rr = [ranges[int(i)] for i in rng.integers(0, len(ranges),
+                                                       sum(shape[0]))]
+            idx = np.concatenate([gx._range_idx(*r) for r in rr])
+            got = K.fused_compound_banked(gx.lut, idx, gx.num_chunks, *shape)
+            want = ref.fused_compound_banked_ref(gx.lut, idx, gx.num_chunks,
+                                                 *shape)
+            same(got[0], want[0], f"compound bitmap, {n_terms} terms")
+            same(got[1], want[1], f"compound count, {n_terms} terms")
+
+    # the row gather of merge_kernel and compound_kernel (csrc/clutch.cuh
+    # :: merge_side) on random LUTs: every templated chunk count (1, 5,
+    # 8) and the generic one (2, 3, 4, 6, 16); W % 4 == 0 (16-byte row loads), W % 4 != 0 and a view
+    # one word off the 16-byte grid (4-byte loads); indices drawn mostly
+    # from a few rows, so steps with lt == le, runs of one row and other
+    # repeats occur, some on the card outside [0, R) (clamped by the
+    # kernel; the plain versions are given them clamped); bank 0 names
+    # one row only (an always-true bank)
+    def gather_idx(shape, r):
+        n = int(np.prod(shape))
+        pool = rng.integers(0, r, 4)
+        x = np.where(rng.random(n) < 0.6, rng.choice(pool, n),
+                     rng.integers(-2, r + 2, n))
+        return torch.from_numpy(x.astype(np.int32).reshape(shape)).to(cuda)
+
+    def word_lut(shape, off=0):
+        n = int(np.prod(shape))
+        flat = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n + off)
+                                .astype(np.int32)).to(cuda)
+        return flat[off:].view(*shape)
+
+    for c in (1, 2, 3, 4, 5, 6, 8, 16):
+        r = 2 * c + 3
+        for b, w, off in ((3, 8, 0), (2, 1001, 0), (2, 4096, 1),
+                          (1, 5000, 0), (5, 3, 0)):
+            lut = word_lut((b, r, w), off)
+            agree(quad_rows(lut) == (w % 4 == 0 and off == 0),
+                  f"gather route W={w} offset={off}")
+            lt, le = gather_idx((b, c), r), gather_idx((b, c), r)
+            lt[0], le[0] = lt[0, 0].clamp(0, r - 1), lt[0, 0].clamp(0, r - 1)
+            lt_c, le_c = lt.clamp(0, r - 1), le.clamp(0, r - 1)
+            what = f"C={c} B={b} W={w} offset={off}"
+            same(K.clutch_merge_banked(lut, lt, le),
+                 ref.clutch_merge_banked_ref(lut, lt_c, le_c),
+                 f"clutch_merge_banked {what}")
+            same(K.clutch_merge(lut[-1], lt[-1], le[-1]),
+                 ref.clutch_merge_ref(lut[-1], lt_c[-1], le_c[-1]),
+                 f"clutch_merge {what}")
+            lut = word_lut((b, 4 * c, w), off)
+            for n_terms in (1, 3, 40):
+                shape = random_terms(n_terms)
+                idx = gather_idx((sum(shape[0]) * 4 * c,), 4 * c)
+                got = K.fused_compound_banked(lut, idx, c, *shape)
+                want = ref.fused_compound_banked_ref(
+                    lut, idx.clamp(0, 4 * c - 1), c, *shape)
+                same(got[0], want[0], f"compound bitmap {n_terms} {what}")
+                same(got[1], want[1], f"compound count {n_terms} {what}")
+    # 70,000 banks of a narrow LUT (beyond a grid's y dimension), with
+    # 4-byte and 16-byte row loads
+    for w in (3, 4):
+        lut = word_lut((70_000, 13, w))
+        lt, le = gather_idx((70_000, 5), 13), gather_idx((70_000, 5), 13)
+        same(K.clutch_merge_banked(lut, lt, le),
+             ref.clutch_merge_banked_ref(lut, lt.clamp(0, 12),
+                                         le.clamp(0, 12)),
+             f"clutch_merge_banked 70,000 banks W={w}")
+    del lut, lt, le, lt_c, le_c, idx
 
     # GBDT leaf bits: 8/16-bit, a narrowed plan, the always-true -1
     for n_bits, c, plan in ((8, 1, None), (16, 2, None),
@@ -324,12 +422,13 @@ def check_kernels(torch) -> int:
     # group, B = 1, W not a multiple of the 64-word slice, masks zero on
     # whole slices (skipped features), row indices on the card outside
     # [0, R) (clamped by the kernel; the plain version is given them
-    # clamped), 2C = 64 index slots, features staged in several passes;
-    # R = 1000 and R = 2000 read their rows from global memory
+    # clamped), 2C = 64 index slots, features staged in several passes,
+    # 12,864 indices an instance; R = 1000 and R = 2000 read their rows
+    # from global memory
     for b, w, r, c, f in ((70, 100, 264, 1, 28), (1, 256, 264, 1, 28),
                           (37, 33, 1000, 2, 6), (45, 130, 2000, 3, 5),
                           (200, 64, 40, 32, 2), (300, 70, 50, 2, 40),
-                          (16, 1, 9, 1, 3)):
+                          (16, 1, 9, 1, 3), (20, 64, 40, 32, 201)):
         lut = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (r, w))
                                .astype(np.int32)).to(cuda)
         masks = rng.integers(-2 ** 31, 2 ** 31, (f + 3, w)).astype(np.int32)
@@ -341,11 +440,6 @@ def check_kernels(torch) -> int:
              ref.gbdt_leafbits_banked_ref(lut, masks, idx.clamp(0, r - 1),
                                           c, f),
              f"leaf bits B={b} W={w} R={r} C={c} F={f}")
-
-    def agree(ok, what):
-        nonlocal n_checks
-        expect(ok, what)
-        n_checks += 1
 
     # compare kernels and front-ends: 8/16/32-bit plans, N not a multiple
     # of 32, W not a power of two (12001 -> 384 words)
@@ -986,6 +1080,7 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     import repro_torch.kernels as K
     from repro_torch.core.encoding import make_plan
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.common import quad_rows
     from repro_torch.kernels.leaf_gather import route as leaf_route
     from repro_torch.pud import queries as Q
 
@@ -995,6 +1090,18 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     # "cold_ms", and the row's "cold_ms"): the time its byte bound is for
     cold = report.setdefault("cold_ms", {})
     flush = torch.ones(64 << 20, dtype=torch.int32, device=cuda)
+    # an empty launch (a spin of 0 cycles) timed the same way: the part
+    # of every cold time that is not the kernel's work
+    empty_ms = cold_ms(torch, lambda: torch.cuda._sleep(0), flush)
+
+    def floor(n_rows: int, words: int) -> dict:
+        """The floor of one pass over the rows a gather reads: the bytes
+        its bound counts, read by x.amax(dim=0) from a contiguous
+        [n_rows, words] int32 tensor, cold; beside it the empty launch."""
+        x = torch.ones((n_rows, words), dtype=torch.int32, device=cuda)
+        ms = cold_ms(torch, lambda: x.amax(dim=0), flush)
+        del x
+        return {"floor_amax_cold_ms": ms, "empty_launch_cold_ms": empty_ms}
 
     def entry(name, got, want, ms, plain_ms, nbytes, nops, extra=None,
               tol=0, library_ms=None, cold_key=None):
@@ -1037,7 +1144,7 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     q2 = table_queries(Q, mx)[1][1]
     idx = np.concatenate([table_ex._range_idx(q2.fi, q2.x0, q2.x1),
                           table_ex._range_idx(q2.fj, q2.y0, q2.y1)])
-    didx = torch.from_numpy(idx).to(cuda)
+    didx = q2_idx = torch.from_numpy(idx).to(cuda)
     got = K.fused_predicate_banked(lut, didx, c, 2, False)
     want = ref.fused_predicate_banked_ref(lut, idx, c, 2, False)
     n_rows = read_rows(idx, c, 2)
@@ -1051,7 +1158,9 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
               lut, idx, c, 2, False), reps=5),
           n_rows * s * w * 4 + s * w * 4 + idx.nbytes,
           s * w * (maj_ops + 1),
-          {"lut_shape": list(lut.shape), "rows_read": n_rows})
+          {"lut_shape": list(lut.shape), "rows_read": n_rows,
+           "quad_rows": quad_rows(lut),
+           **floor(n_rows, s * w)})
 
     # fused_compound_banked: the 3-term compound of the table path
     cq = table_queries(Q, mx)[6][1]
@@ -1078,7 +1187,22 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
               lut, idx, c, *shape), reps=5),
           n_rows * s * w * 4 + s * w * 4 + idx.nbytes,
           s * w * (len(ranges) * (2 * (c - 1) * 5 + 1) + len(ranges)),
-          {"terms": [list(x) for x in shape], "rows_read": n_rows})
+          {"terms": [list(x) for x in shape], "rows_read": n_rows,
+           "quad_rows": quad_rows(lut),
+           **floor(n_rows, s * w)})
+    # rows 2-3 timed again, then on a fresh copy of the LUT: a slow state
+    # of the card or process (PERF.md) shows in all of them as in the
+    # first timing; one of the LUT's placement would leave the copy fast
+    fresh = lut.clone()
+    for name, fn in (
+            ("fused_predicate_banked",
+             lambda x: K.fused_predicate_banked(x, q2_idx, c, 2, False)),
+            ("fused_compound_banked",
+             lambda x: K.fused_compound_banked(x, didx, c, *shape))):
+        report["bounds"][name].update(
+            cold_ms_again=cold_ms(torch, lambda: fn(lut), flush),
+            cold_ms_fresh_lut=cold_ms(torch, lambda: fn(fresh), flush))
+    del fresh
 
     # gbdt_leafbits_banked: the 2^16-instance batch
     glut, masks = gbdt_ex.lut, gbdt_ex.masks
@@ -1137,6 +1261,7 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
         n_rows = merge_rows(lt.tolist(), le.tolist())
         clutch_bytes = (n_rows + 1) * w * 4 + 2 * c * 4
         clutch_ops = w * 5 * (c - 1)
+        quad = quad_rows(lut)
         del lut
         planes = ops.encode_bitplanes(vt, n_bits)
         bgot = K.bitserial_cmp(planes, a, n_bits)
@@ -1158,7 +1283,8 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
             entry("clutch_merge", [got], [want], clutch_ms, clutch_plain,
                   clutch_bytes, clutch_ops,
                   {"lut_words": w, "plan": [n_bits, c], "a": a,
-                   "rows_read": n_rows},
+                   "rows_read": n_rows, "quad_rows": quad,
+                   **floor(n_rows, w)},
                   cold_key=f"clutch_merge {n_bits}/{c}")
             entry("bitserial_cmp", [bgot], [bwant], bs_ms, bs_plain,
                   bs_bytes, bs_ops,
@@ -1181,7 +1307,10 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
                     lambda: K.clutch_merge_banked(luts, blt, ble)),
           plain(lambda: ref.clutch_merge_banked_ref(luts, blt, ble)),
           (n_rows + b) * w * 4 + blt.numel() * 8, b * w * 5 * 4,
-          {"lut_shape": list(luts.shape), "rows_read": n_rows},
+          # the floor reads the same rows and writes one [W] row, where
+          # the kernel writes B
+          {"lut_shape": list(luts.shape), "rows_read": n_rows,
+           "quad_rows": quad_rows(luts), **floor(n_rows, w)},
           cold_key="clutch_merge_banked 32/5")
     del luts
 
@@ -1256,10 +1385,7 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
             "warm_ms": warm_ms(torch, lambda: K.minp_mask(x, t),
                                lambda: x.amax(-1)),
             "copy_cold_ms": cold[f"copy_ {b}x{v}"],
-            # an empty launch (a spin of 0 cycles) timed the same way:
-            # the part of every cold time that is not the kernel's work
-            "empty_launch_cold_ms": cold_ms(
-                torch, lambda: torch.cuda._sleep(0), flush),
+            "empty_launch_cold_ms": empty_ms,
             "copy_warm_ms": warm_ms(torch, lambda: y.copy_(x),
                                     lambda: x.amax(-1)),
             "plain_ms": plain(lambda: ref.minp_mask_ref(x, t)),

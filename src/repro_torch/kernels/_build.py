@@ -38,13 +38,13 @@ SIGNATURES = {
         "temporal_encode_launch": [_P, _I, _I, _P, _P],
     },
     "fused_query": {
-        "compound_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _U,
+        "compound_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                             _P, _P, _P],
         "range_count_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
         "leafbits_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "clutch_merge": {
-        "merge_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "merge_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     },
     "bitserial_cmp": {
         "bitserial_launch": [_P, _I, _U, _I, _P, _P],

@@ -9,9 +9,11 @@ Replaces two TPU kernels of ``src/repro/kernels/clutch_merge.py``:
 
 Both run on one CUDA function (``csrc/clutch_merge.cu :: merge_kernel``),
 the unbanked merge being one bank; each wrapper keeps its own launch
-count.  The kernel is bound by the rows it reads (see the note in the
-source).  A CPU tensor takes the plain version from
-:mod:`repro_torch.kernels.ref`.  Host indices outside the LUT raise
+count.  The kernel takes any number of banks and is bound by the rows
+it reads (see the note in the source); it reads a thread's four words
+of a row as one 16-byte load where it can
+(:func:`~repro_torch.kernels.common.quad_rows`).  A CPU tensor takes
+the plain version from :mod:`repro_torch.kernels.ref`.  Host indices outside the LUT raise
 before the launch.
 """
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import check_words, index_tensor, on_card
+from .common import check_words, index_tensor, on_card, quad_rows
 from .ref import clutch_merge_banked_ref, clutch_merge_ref
 
 
@@ -48,7 +50,8 @@ def _launch(lut: torch.Tensor, lt: torch.Tensor, le: torch.Tensor
     lib = _build.load("clutch_merge")
     stream = torch.cuda.current_stream(lut.device).cuda_stream
     err = lib.merge_launch(lut.data_ptr(), lt.data_ptr(), le.data_ptr(),
-                           lt.shape[-1], b, r, w, out.data_ptr(), stream)
+                           lt.shape[-1], b, r, w, int(quad_rows(lut)),
+                           out.data_ptr(), stream)
     _build.check(lib, err, "clutch_merge.merge_kernel")
     return out
 

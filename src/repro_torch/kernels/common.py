@@ -81,6 +81,13 @@ def index_tensor(idx, n_rows: int, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int32).contiguous()
 
 
+def quad_rows(lut: torch.Tensor) -> bool:
+    """Whether the gather kernels (``csrc/clutch.cuh :: Rows``) read a
+    thread's four words of a LUT row as one 16-byte load: W a multiple
+    of 4 and the LUT 16-byte aligned; else four 4-byte loads."""
+    return lut.shape[-1] % 4 == 0 and lut.data_ptr() % 16 == 0
+
+
 def check_words(t: torch.Tensor, ndim: int, what: str = "LUT") -> None:
     """Raise unless ``t`` is an ``ndim``-D int32 tensor of words."""
     if t.dim() != ndim or t.dtype != torch.int32:

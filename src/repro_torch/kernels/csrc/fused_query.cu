@@ -13,16 +13,31 @@
 // gathered rows; le[0] is never read.  A range is the gt-side merge on
 // the normal planes AND the lt-side merge on the complement planes.
 //
-// compound_kernel: one thread per (shard, word).  The block stages the
-// row indices in shared memory; each thread gathers its rows (coalesced
-// along w), folds MAJ3, the terms' AND/OR and the connectives in
-// registers, writes its bitmap word and adds __popc to the shard count:
-// warp reduction, block reduction, one atomicAdd per block into cnt[s]
-// (an exact integer, so the order of the atomics does not matter).  The
-// TPU carried the count along its sequential grid axis and sized blocks
-// to 4 MiB of VMEM; neither carries over.
-// Bound: the gathered rows, nr * 2 * (2C-1) * S * W * 4 bytes (distinct
-// rows only), plus the bitmap written, S * W * 4.
+// compound_kernel: a persistent grid (as many blocks as fit on the SMs)
+// walks (shard, word tile) by a 64-bit index; a block's thread owns four
+// words of the tile (clutch.cuh :: Rows: one 16-byte load a row where
+// W % 4 == 0 and the LUT is 16-byte aligned, else four 4-byte loads).
+// Per range it folds both sides (clutch.cuh :: merge_side: row loads
+// issued in groups of four steps before their MAJ3s, the chunk count C
+// a template for C in {1, 5, 8}) and ANDs them; per term it joins
+// the ranges with the term's AND or OR, and the term with the result
+// through its connective (the result starts all ones, so the first
+// term's AND is the term itself).  The term program has one int32 per
+// term (its range count, its AND/OR, its connective) and any length: it
+// rides in the launch's parameters (__grid_constant__) up to PROG_PARAM
+// terms, beyond that it is read from device memory.  The row indices,
+// any number of them, are read through the read-only cache (staging
+// them in shared memory timed 2 % faster on a predicate and no faster on
+// a compound: PERF.md).  Each thread counts its words'
+// bits; a block adds its count to cnt[s] once per shard it visits (one
+// 64-bit atomicAdd: an exact integer, so the order of the atomics does
+// not matter).  The TPU carried the count along its sequential grid axis
+// and sized blocks to 4 MiB of VMEM; neither carries over.
+// Bound: the distinct rows the indices name, S * W * 4 bytes each, plus
+// the bitmap written, S * W * 4; a handful of logic operations per row
+// word is far below the issue rate, so it is bound by bytes.  At the
+// table path's shapes it runs at about the speed of x.amax(dim=0) over
+// the same rows laid out contiguously (PERF.md).
 //
 // range_count_kernel: one range over two separate [R, W] LUTs, the
 // gt-side on `lut`, the lt-side on `lut_c`; otherwise compound_kernel's
@@ -55,8 +70,8 @@
 // same kernel.  The wrapper chooses by shape before the launch
 // (fused_query.py :: leafbits_layout).
 //
-// Indices are clamped into [0, R) while staged, so no index can read
-// outside the LUT; the Python wrappers reject out-of-range host indices
+// Indices are clamped into [0, R) while staged or read, so no index can
+// read outside the LUT; the Python wrappers reject out-of-range host indices
 // before launch.
 
 #include <algorithm>
@@ -66,50 +81,90 @@
 namespace {
 
 using clutch::BLOCK;
+using clutch::GlobalIdx;
+using clutch::Quad;
+using clutch::QUAD;
+using clutch::TILE;
+using clutch::add_block_count;
 using clutch::add_block_popcount;
 using clutch::merge;
+using clutch::merge_side;
 using clutch::stage;
 
-constexpr int MAX_TERMS = 32;
+// Term program codes, one per term (fused_query.py :: compound_program):
+// the term's range count << 2 | TERM_OR | CONN_OR
+constexpr int TERM_OR = 1;       // the term ORs its ranges (else ANDs)
+constexpr int CONN_OR = 2;       // the term joins the result by OR
+constexpr int PROG_PARAM = 768;  // codes carried in the launch parameters
 
-struct Terms {
+struct Program {
   int n_terms;
-  int ranges[MAX_TERMS];  // ranges per term
-  uint32_t term_disj;     // bit t: term t ORs its ranges (else ANDs)
-  uint32_t conn_disj;     // bit t: connective after term t is OR
+  const int32_t* dev;            // the codes in device memory, or null
+  int32_t code[PROG_PARAM];      // the codes, when n_terms <= PROG_PARAM
 };
 
-__global__ void compound_kernel(const uint32_t* __restrict__ lut,
-                                const int32_t* __restrict__ idx, int n_idx,
-                                int c, int R, int W, Terms terms,
-                                uint32_t* __restrict__ bm,
-                                unsigned long long* __restrict__ cnt) {
-  extern __shared__ int s_idx[];
-  stage(s_idx, idx, n_idx, R);
-  __syncthreads();
-  const int s = blockIdx.y;
-  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t acc = 0;
-  if (w < W) {
-    const uint32_t* col = lut + (long long)s * R * W + w;
-    int off = 0;
-    for (int t = 0; t < terms.n_terms; ++t) {
-      const bool disj = (terms.term_disj >> t) & 1u;
-      uint32_t tb = 0;
-      for (int k = 0; k < terms.ranges[t]; ++k) {
-        const uint32_t rng = merge(col, s_idx + off, c, W) &
-                             merge(col, s_idx + off + 2 * c, c, W);
-        off += 4 * c;
-        tb = (k == 0) ? rng : (disj ? (tb | rng) : (tb & rng));
-      }
-      if (t == 0)
-        acc = tb;
-      else
-        acc = ((terms.conn_disj >> (t - 1)) & 1u) ? (acc | tb) : (acc & tb);
+template <int C, bool VEC4>
+__global__ void __launch_bounds__(BLOCK)
+compound_kernel(const uint32_t* __restrict__ lut,
+                const int32_t* __restrict__ idx, int c, int S, int R, int W,
+                const __grid_constant__ Program prog,
+                uint32_t* __restrict__ bm,
+                unsigned long long* __restrict__ cnt) {
+  const int cc = C ? C : c;
+  auto side = [&](const clutch::Rows<VEC4>& rows, int o) {
+    return merge_side<C, VEC4>(GlobalIdx{idx + o, R},
+                               GlobalIdx{idx + o + cc, R}, cc, rows);
+  };
+  const long long tiles = ((long long)W + TILE - 1) / TILE;
+  const long long n = tiles * S;
+  long long shard = -1;
+  unsigned count = 0;          // this thread's bits of `shard`
+  for (long long t = blockIdx.x; t < n; t += gridDim.x) {
+    const long long s = t / tiles;
+    if (s != shard) {          // uniform: the tile index is the block's
+      if (shard >= 0) add_block_count(count, cnt + shard);
+      shard = s;
+      count = 0;
     }
-    bm[(long long)s * W + w] = acc;
+    const clutch::Rows<VEC4> rows(lut + s * R * W, W,
+                                  (int)(t - s * tiles) * TILE);
+    Quad acc;
+#pragma unroll
+    for (int q = 0; q < QUAD; ++q) acc.w[q] = ~0u;
+    int r0 = 0;                // the term's first range
+    for (int k = 0; k < prog.n_terms; ++k) {
+      const int code = prog.dev ? __ldg(prog.dev + k) : prog.code[k];
+      const int nr = code >> 2;
+      Quad tb{};
+      for (int j = 0; j < nr; ++j) {
+        const int o = (r0 + j) * 4 * cc;
+        const Quad rng = side(rows, o) & side(rows, o + 2 * cc);
+        tb = j == 0 ? rng : (code & TERM_OR) ? (tb | rng) : (tb & rng);
+      }
+      acc = (code & CONN_OR) ? (acc | tb) : (acc & tb);
+      r0 += nr;
+    }
+    rows.store(bm + s * W, acc);
+#pragma unroll
+    for (int q = 0; q < QUAD; ++q) count += __popc(acc.w[q]);
   }
-  add_block_popcount(acc, cnt + s);
+  if (shard >= 0) add_block_count(count, cnt + shard);
+}
+
+template <int C, bool VEC4>
+int compound_run(const void* lut, const void* idx, int c, int S, int R,
+                 int W, const Program& prog, void* bm, void* cnt,
+                 cudaStream_t stream) {
+  auto kernel = compound_kernel<C, VEC4>;
+  static int cap = 0;
+  int grid = 0;
+  cudaError_t e = clutch::persistent_grid(
+      kernel, ((long long)W + TILE - 1) / TILE * S, &cap, &grid);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, BLOCK, 0, stream>>>(
+      (const uint32_t*)lut, (const int32_t*)idx, c, S, R, W, prog,
+      (uint32_t*)bm, (unsigned long long*)cnt);
+  return (int)cudaGetLastError();
 }
 
 __global__ void range_count_kernel(const uint32_t* __restrict__ lut,
@@ -366,25 +421,43 @@ int leafbits_run(const void* lut, const void* masks, const void* idx, int c,
 extern "C" {
 
 // lut [S, R, W] words; idx [n_idx] int32, per range (gt_lt, gt_le, lt_lt,
-// lt_le) of c entries each; term_ranges [n_terms] host ints; bm [S, W]
-// words out; cnt [S] uint64, zeroed by the caller, accumulated here.
+// lt_le) of c entries each, the ranges in term order; codes [n_terms]
+// int32 on the host, the term program (copied into the launch when
+// n_terms <= PROG_PARAM), and codes_dev the same codes in device memory
+// (read when it is longer); vec4: 16-byte row loads (W % 4 == 0, lut
+// 16-byte aligned); bm [S, W] words out; cnt [S] uint64, zeroed by the
+// caller, accumulated here.
 int compound_launch(const void* lut, const void* idx, int n_idx, int c,
-                    int S, int R, int W, int n_terms, const void* term_ranges,
-                    unsigned term_disj, unsigned conn_disj, void* bm,
-                    void* cnt, void* stream) {
-  if (n_terms < 1 || n_terms > MAX_TERMS) return (int)cudaErrorInvalidValue;
-  Terms terms{};
-  terms.n_terms = n_terms;
-  for (int t = 0; t < n_terms; ++t)
-    terms.ranges[t] = ((const int*)term_ranges)[t];
-  terms.term_disj = term_disj;
-  terms.conn_disj = conn_disj;
-  dim3 grid((W + BLOCK - 1) / BLOCK, S);
-  compound_kernel<<<grid, BLOCK, n_idx * sizeof(int),
-                    (cudaStream_t)stream>>>(
-      (const uint32_t*)lut, (const int32_t*)idx, n_idx, c, R, W, terms,
-      (uint32_t*)bm, (unsigned long long*)cnt);
-  return (int)cudaGetLastError();
+                    int S, int R, int W, int n_terms, const void* codes,
+                    const void* codes_dev, int vec4, void* bm, void* cnt,
+                    void* stream) {
+  if (S <= 0 || W <= 0) return (int)cudaSuccess;
+  long long n_ranges = 0;
+  for (int k = 0; k < n_terms; ++k) {
+    const int nr = ((const int32_t*)codes)[k] >> 2;
+    if (nr < 1) return (int)cudaErrorInvalidValue;
+    n_ranges += nr;
+  }
+  if (c < 1 || R < 1 || n_terms < 1 || n_idx != n_ranges * 4 * c ||
+      (n_terms > PROG_PARAM && codes_dev == nullptr) ||
+      (vec4 && (W % 4 != 0 || ((uintptr_t)lut & 15) != 0)))
+    return (int)cudaErrorInvalidValue;
+  Program prog;
+  prog.n_terms = n_terms;
+  prog.dev = nullptr;
+  if (n_terms <= PROG_PARAM)
+    for (int k = 0; k < n_terms; ++k)
+      prog.code[k] = ((const int32_t*)codes)[k];
+  else
+    prog.dev = (const int32_t*)codes_dev;
+  cudaStream_t s = (cudaStream_t)stream;
+  return clutch::by_chunks(c, [&](auto kc) {
+    constexpr int C = decltype(kc)::value;
+    return vec4 ? compound_run<C, true>(lut, idx, c, S, R, W, prog, bm,
+                                        cnt, s)
+                : compound_run<C, false>(lut, idx, c, S, R, W, prog, bm,
+                                         cnt, s);
+  });
 }
 
 // lut, lut_c [R, W] words; idx [4c] int32 (gt_lt, gt_le, lt_lt, lt_le);

@@ -16,31 +16,35 @@ Replaces four TPU kernels of ``src/repro/kernels/fused_query.py``:
 
 The first two share one CUDA function (``csrc/fused_query.cu ::
 compound_kernel``), the predicate being the one-term compound; each
-wrapper keeps its own launch count.  All four are bound by memory
-traffic (see the notes in the CUDA source).  A CPU tensor takes the
+wrapper keeps its own launch count.  A compound takes any number of
+terms and ranges: the wrapper hands the kernel a term program
+(:func:`compound_program`, one int32 code per term), and the kernel
+reads any number of row indices.  All four are bound by memory traffic (see the notes in the CUDA
+source).  A CPU tensor takes the
 plain version from :mod:`repro_torch.kernels.ref`.
 
 Row indices may be given on the host (NumPy or a CPU tensor): they are
 checked against the LUT's row count and copied to the card.  Indices
-already on the card are clamped into range by the kernel while staged.
+already on the card are clamped into range by the kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
-
+import numpy as np
 import torch
 
 from . import _build
-from .common import check_words, index_tensor, on_card
+from .common import check_words, index_tensor, on_card, quad_rows
 from .ref import (
     fused_compound_banked_ref,
     fused_range_count_ref,
     gbdt_leafbits_banked_ref,
 )
 
-MAX_TERMS = 32          # csrc/fused_query.cu :: MAX_TERMS
-MAX_SMEM_IDX = 12288    # 48 KB of int32 indices staged per block
+# csrc/fused_query.cu :: compound_kernel's term program: the flags of a
+# term's code, and the terms whose codes ride in the launch's parameters
+TERM_OR, CONN_OR = 1, 2
+PROG_PARAM = 768
 # csrc/fused_query.cu :: leafbits_kernel: warps per block, instances per
 # warp group, index slots per instance staged at once, words of
 # live-feature bits, words of a block's slice
@@ -60,13 +64,28 @@ def leafbits_layout(rows: int) -> tuple[bool, int]:
     return False, fixed
 
 
+def compound_program(term_ranges, term_disj, conn_disj) -> np.ndarray:
+    """The term program of ``compound_kernel``: one int32 code per term,
+    ``ranges << 2 | TERM_OR | CONN_OR``.
+
+    The term's ranges (``ranges``, consecutive in the index array) join
+    with OR when ``TERM_OR``, else AND; the term joins the result with
+    OR when ``CONN_OR``, else AND.  The result starts all ones, so the
+    first term (joined with AND) is the term itself."""
+    return np.asarray(
+        [(nr << 2) | (TERM_OR if disj else 0)
+         | (CONN_OR if t and conn_disj[t - 1] else 0)
+         for t, (nr, disj) in enumerate(zip(term_ranges, term_disj))],
+        np.int32)
+
+
 def _compound(lut, idx, num_chunks, term_ranges, term_disj, conn_disj):
     """Shared body of the two predicate wrappers; returns the outputs
     and whether the kernel was launched."""
     check_words(lut, 3)
     term_ranges = tuple(int(n) for n in term_ranges)
-    if not 1 <= len(term_ranges) <= MAX_TERMS:
-        raise ValueError(f"need 1..{MAX_TERMS} terms, got {len(term_ranges)}")
+    if not term_ranges:
+        raise ValueError("need at least one term")
     if len(term_disj) != len(term_ranges) or \
             len(conn_disj) != len(term_ranges) - 1:
         raise ValueError("need one term_disj per term and one "
@@ -81,21 +100,20 @@ def _compound(lut, idx, num_chunks, term_ranges, term_disj, conn_disj):
     if not on_card(lut, idx):
         return fused_compound_banked_ref(lut, idx, num_chunks, term_ranges,
                                          term_disj, conn_disj), False
-    if n_idx > MAX_SMEM_IDX:
-        raise ValueError(f"{n_idx} row indices exceed the kernel's "
-                         f"{MAX_SMEM_IDX}")
     lut = lut.contiguous()
     bm = torch.empty((s, w), dtype=torch.int32, device=lut.device)
     cnt = torch.zeros((s,), dtype=torch.int64, device=lut.device)
-    ranges = (ctypes.c_int * len(term_ranges))(*term_ranges)
-    tdisj = sum(1 << t for t, d in enumerate(term_disj) if d)
-    cdisj = sum(1 << t for t, d in enumerate(conn_disj) if d)
+    codes = compound_program(term_ranges, term_disj, conn_disj)
+    # a program longer than the launch's parameters is read from the card
+    codes_dev = torch.from_numpy(codes).to(lut.device) \
+        if codes.size > PROG_PARAM else None
     lib = _build.load("fused_query")
     stream = torch.cuda.current_stream(lut.device).cuda_stream
     err = lib.compound_launch(
         lut.data_ptr(), idx.data_ptr(), n_idx, num_chunks, s, r, w,
-        len(term_ranges), ctypes.addressof(ranges), tdisj, cdisj,
-        bm.data_ptr(), cnt.data_ptr(), stream)
+        codes.size, codes.ctypes.data,
+        None if codes_dev is None else codes_dev.data_ptr(),
+        int(quad_rows(lut)), bm.data_ptr(), cnt.data_ptr(), stream)
     _build.check(lib, err, "fused_query.compound_kernel")
     return (bm, cnt), True
 
@@ -192,9 +210,10 @@ def gbdt_leafbits_banked(lut: torch.Tensor, masks: torch.Tensor, idx,
     if not on_card(lut, masks, idx):
         return gbdt_leafbits_banked_ref(lut, masks, idx, num_chunks,
                                         num_features)
-    if n > MAX_SMEM_IDX:
-        raise ValueError(f"{n} row indices exceed the kernel's "
-                         f"{MAX_SMEM_IDX}")
+    if num_features > 32 * LEAF_LIVE or 2 * num_chunks > LEAF_SLOTS:
+        raise ValueError(f"leafbits_kernel takes at most {32 * LEAF_LIVE} "
+                         f"features of at most {LEAF_SLOTS // 2} chunks, "
+                         f"got {num_features} of {num_chunks}")
     lut, masks = lut.contiguous(), masks.contiguous()
     b = idx.shape[0]
     out = torch.empty((b, w), dtype=torch.int32, device=lut.device)

@@ -7,6 +7,7 @@ the predicate and GBDT kernels through their pure-jnp oracles in
 cross as bit patterns.  Every comparison is exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,21 +112,125 @@ def test_fused_compound_banked_ref_matches_jax_term_fold(
     c, s = 3, 2
     lut = _words(rng, (s, 64, 256))
     idx = rng.integers(0, 64, sum(term_ranges) * 4 * c).astype(np.int32)
-    acc, off = None, 0
-    for t, (nr, disj) in enumerate(zip(term_ranges, term_disj)):
-        part = idx[off:off + nr * 4 * c]
-        off += nr * 4 * c
-        tb, _ = jref.fused_predicate_banked_ref(
-            jnp.asarray(lut), jnp.asarray(part), c, nr, disj)
-        tb = np.asarray(tb)
-        acc = tb if acc is None else (
-            (acc | tb) if conn_disj[t - 1] else (acc & tb))
+    acc = _fold_terms(lut, idx, c, term_ranges, term_disj, conn_disj)
     bm, cnt = ref.fused_compound_banked_ref(
         convert.words_to_torch(lut), idx, c, term_ranges, term_disj,
         conn_disj)
     np.testing.assert_array_equal(_np(bm), acc)
     np.testing.assert_array_equal(
         cnt.numpy(), np.bitwise_count(acc).sum(-1).astype(np.int64))
+
+
+_predicate_ref = jax.jit(jref.fused_predicate_banked_ref,
+                         static_argnums=(2, 3, 4))
+
+
+def _fold_terms(lut, idx, c, term_ranges, term_disj, conn_disj):
+    """The reference's per-term fold: each term's bitmap from the JAX
+    predicate oracle, folded left to right through the connectives."""
+    acc, off = None, 0
+    for t, (nr, disj) in enumerate(zip(term_ranges, term_disj)):
+        part = idx[off:off + nr * 4 * c]
+        off += nr * 4 * c
+        tb, _ = _predicate_ref(jnp.asarray(lut), jnp.asarray(part), c, nr,
+                               disj)
+        tb = np.asarray(tb)
+        acc = tb if acc is None else (
+            (acc | tb) if conn_disj[t - 1] else (acc & tb))
+    return acc
+
+
+def _random_terms(rng, n_terms):
+    term_ranges = tuple(int(x) for x in rng.integers(1, 3, n_terms))
+    term_disj = tuple(bool(x) for x in rng.integers(0, 2, n_terms))
+    conn_disj = tuple(bool(x) for x in rng.integers(0, 2, n_terms - 1))
+    return term_ranges, term_disj, conn_disj
+
+
+def test_fused_compound_banked_beyond_the_staged_indices():
+    """More row indices than the kernel once staged in shared memory
+    (12,288, formerly a limit on the card): the wrapper on the CPU
+    equals the reference's per-term fold."""
+    from repro_torch.kernels import fused_compound_banked
+
+    rng = np.random.default_rng(12)
+    c, s = 8, 2
+    shape = _random_terms(rng, 300)
+    n_idx = sum(shape[0]) * 4 * c
+    assert n_idx > 12_288
+    lut = _words(rng, (s, 48, 128))
+    idx = rng.integers(0, 48, n_idx).astype(np.int32)
+    bm, cnt = fused_compound_banked(convert.words_to_torch(lut), idx, c,
+                                    *shape)
+    want = _fold_terms(lut, idx, c, *shape)
+    np.testing.assert_array_equal(_np(bm), want)
+    np.testing.assert_array_equal(
+        cnt.numpy(), np.bitwise_count(want).sum(-1).astype(np.int64))
+
+
+@pytest.mark.parametrize("n_terms", [1, 2, 3, 40, 900])
+def test_compound_program_runs_as_the_plain_version(n_terms):
+    """The kernel's term program (one code per term), run by a plain
+    interpreter over the ranges' bitmaps, equals the plain version; 900
+    terms is longer than the codes the launch carries."""
+    from repro_torch.kernels import fused_query as fq
+
+    rng = np.random.default_rng(n_terms)
+    c = 2
+    shape = _random_terms(rng, n_terms)
+    codes = fq.compound_program(*shape)
+    assert codes.dtype == np.int32 and codes.shape == (n_terms,)
+    lut = convert.words_to_torch(_words(rng, (2, 24, 64)))
+    idx = rng.integers(0, 24, sum(shape[0]) * 4 * c).tolist()
+    acc = torch.full((2, 64), -1, dtype=torch.int32)      # all ones
+    r0 = 0
+    for code in codes.tolist():
+        nr = code >> 2
+        tb = ref._range_bm(lut, idx, c, r0)
+        for r in range(r0 + 1, r0 + nr):
+            nxt = ref._range_bm(lut, idx, c, r)
+            tb = (tb | nxt) if code & fq.TERM_OR else (tb & nxt)
+        acc = (acc | tb) if code & fq.CONN_OR else (acc & tb)
+        r0 += nr
+    want, _ = ref.fused_compound_banked_ref(lut, idx, c, *shape)
+    assert torch.equal(acc, want)
+
+
+def test_gather_routes_follow_the_index_count_and_alignment():
+    """The gather kernels' one route: 16-byte row loads where W % 4 == 0
+    and the LUT is 16-byte aligned.  The index count picks none (the
+    compound kernel reads any number through the read-only cache), so
+    the launch takes no index route."""
+    from repro_torch.kernels import _build
+
+    flat = torch.zeros(2 * 5 * 1024 + 1, dtype=torch.int32)
+    lut = flat[:-1].view(2, 5, 1024)
+    assert common.quad_rows(lut)
+    assert not common.quad_rows(flat[1:].view(2, 5, 1024))    # 4 bytes off
+    assert not common.quad_rows(flat[:2 * 5 * 1022].view(2, 5, 1022))
+    # lut, idx, n_idx, c, S, R, W, n_terms, codes, codes_dev, vec4, bm,
+    # cnt, stream
+    assert len(_build.SIGNATURES["fused_query"]["compound_launch"]) == 14
+
+
+def test_clutch_merge_banked_beyond_65535_banks():
+    """More banks than a grid's y dimension (formerly a limit on the
+    card): the plain version equals the JAX oracle on a sample of
+    banks."""
+    from repro_torch.kernels import clutch_merge_banked
+
+    rng = np.random.default_rng(7)
+    b, r, w, c = 70_000, 11, 2, 5
+    lut = _words(rng, (b, r, w))
+    lt = rng.integers(0, r, (b, c)).astype(np.int32)
+    le = rng.integers(0, r, (b, c)).astype(np.int32)
+    got = _np(clutch_merge_banked(convert.words_to_torch(lut), lt, le))
+    assert got.shape == (b, w)
+    for k in [0, 1, 65_534, 65_535, 65_536, b - 1,
+              *rng.integers(0, b, 20).tolist()]:
+        want = jref.clutch_merge_ref(jnp.asarray(lut[k]), jnp.asarray(lt[k]),
+                                     jnp.asarray(le[k]))
+        np.testing.assert_array_equal(got[k], np.asarray(want))
 
 
 # ------------------------------ GBDT leaf bits ---------------------------- #

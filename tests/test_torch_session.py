@@ -75,6 +75,42 @@ def test_query_matches_reference_machine_session(n_bits, shards_per_device,
     assert ex.launch_counts[(2, True)] == 4      # two Q3s, two Q5 phase 1s
 
 
+def _many_terms(Q, mx, k, rng):
+    """A ``k``-term compound mixing Q1/Q2/Q3 terms and and/or."""
+    terms = []
+    for i in range(k):
+        (a, b), (c, d) = (sorted(int(x) for x in rng.integers(0, mx + 1, 2))
+                          for _ in range(2))
+        fi, fj = (int(x) for x in rng.integers(0, 4, 2))
+        if i % 3 == 0:
+            terms.append(Q.Q1(fi=fi, x0=a, x1=b))
+        else:
+            q = Q.Q2 if i % 3 == 1 else Q.Q3
+            terms.append(q(fi=fi, x0=a, x1=b, fj=fj, y0=c, y1=d))
+    ops = tuple("or" if x else "and" for x in rng.integers(0, 2, k - 1))
+    return tuple(terms), ops
+
+
+@pytest.mark.parametrize("k", [33, 40])
+def test_compound_of_many_terms_matches_reference_machine_session(k):
+    """More terms than the kernel's former limit of 32: bitmap and
+    count equal the reference machine session's."""
+    t = JP.Table.generate(2501, 8, num_features=4, seed=8)
+    js = JSession(num_devices=1)
+    jh = js.create_table(t, name="t")
+    jterms, jops = _many_terms(JQ, 255, k, np.random.default_rng(k))
+    want = js.query(jh, [JQ.Compound(jterms, jops),
+                         JQ.Compound(jterms, jops, count=True)]).result
+    ts = PudSession(device="cpu")
+    th = ts.create_table(convert.table(t.n_bits, t.features), name="t")
+    terms, ops = _many_terms(TQ, 255, k, np.random.default_rng(k))
+    got = ts.query(th, [TQ.Compound(terms, ops),
+                        TQ.Compound(terms, ops, count=True)]).result
+    np.testing.assert_array_equal(got[0], want[0])
+    assert type(got[1]) is type(want[1]) and got[1] == want[1]
+    assert got[1] == int(want[0].sum())
+
+
 @pytest.mark.parametrize("n_bits,depth,trees", [(8, 4, 24), (16, 3, 17)])
 def test_predict_matches_reference_machine_session(n_bits, depth, trees):
     f = JG.ObliviousForest.random(num_trees=trees, depth=depth,
