@@ -59,7 +59,27 @@ Phases (any failure exits non-zero; none is caught and passed over):
    on a decode step's ``[8, 256000]`` logits the kernel equals its
    plain version and the float comparison bit for bit, and 4,096 draws
    land in the kept set.
-7. Time each kernel (CUDA events around launches, and ``cold_ms``: one
+7. The other block kinds at full width, one arch at a time (each freed
+   before the next): ``granite-moe-3b-a800m`` (MoE, 40 experts top-8,
+   3.37 B parameters), ``rwkv6-3b`` (RWKV time and channel mix, 3.07 B)
+   and ``jamba-v0.1-52b`` cut to one period of 8 of its 32 layers (7
+   mamba, 1 attention, 4 MoE of 16 experts top-2; 13.3 B: the 32 layers
+   would not fit one 80 GB card), bf16 random weights from
+   ``torch.Generator("cuda").manual_seed(0)``, each serve 8 requests of
+   256-token prompts, 16 new tokens each, through
+   ``ServeEngine(num_slots=8, max_len=512)`` with min-p 0.05 on the
+   ``minp_mask`` kernel (one launch per decode step); the mask on a
+   decode step's ``[8, V_pad]`` logits equal to its plain version bit for
+   bit; decode at position 255 against ``forward_logits`` (MoE on the
+   no-drop capacity factor, ``num_experts``) within the bf16 tolerance,
+   granite's on a float32 copy of its weights within a float32 one (in
+   bf16 its top-8 of 40 routing parts between the two, see
+   ``ARCH_PATHS``); a decode step profiled.  Then
+   ``whisper-base`` at full size: 1,500 synthetic frames (a 30-s window)
+   encoded for a batch of 2, 8 prompt tokens prefilled, 8 decode steps
+   against the cross K/V, each within the bf16 tolerance of
+   ``forward_logits``.
+8. Time each kernel (CUDA events around launches, and ``cold_ms``: one
    launch after an L2 flush), its plain version, its bound and, where
    one PyTorch call computes the same function, that call, at the paths'
    shapes; for ``minp_mask`` also the floor of a pass over the same
@@ -78,6 +98,7 @@ bound inputs, peak memory) go to standard error.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -140,6 +161,25 @@ LM_PROMPT, LM_NEW, LM_DRAWS = 256, 32, 4096
 # decode vs forward in bf16, as fractions of the largest logit: 2^-4 is
 # 16 bf16 ulps of it (max error), 2^-6 4 ulps (mean error)
 DECODE_TOL, DECODE_MEAN_TOL = 2.0 ** -4, 2.0 ** -6
+# phase 7: (arch, layers kept or None, parameter count, dtype of the
+# decode-vs-forward check), 8 requests through 8 slots; whisper's 30-s
+# window of frames.  granite's check runs on a float32 copy of its
+# weights: in bf16 the forward (GEMMs over 512 rows) and the prefill (510)
+# round differently, which flips a token's top-8 of 40 experts where the
+# 8th and 9th router logits lie 7e-6 apart, and the flips cascade through
+# attention (on the card: 9 of 510 prompt tokens routed otherwise at layer
+# 1, ~450 from layer 20; decode vs forward then 7.2 on logits of 8.75).
+# In float32 no token is routed otherwise and they agree within 6.1e-4.
+ARCH_PATHS = (("granite-moe-3b-a800m", None, 3_374_679_552, "float32"),
+              ("rwkv6-3b", None, 3_073_313_280, "bfloat16"),
+              ("jamba-v0.1-52b", 8, 13_295_235_072, "bfloat16"))
+# the decode-vs-forward check in float32, as fractions of the largest
+# logit: 2^-10 (max error; 8.5e-3 at 8.7) and 2^-14 (mean)
+F32_DECODE_TOL, F32_DECODE_MEAN_TOL = 2.0 ** -10, 2.0 ** -14
+ARCH_REQUESTS, ARCH_SLOTS, ARCH_MAX_LEN = 8, 8, 512
+ARCH_PROMPT, ARCH_NEW = 256, 16
+WHISPER_PARAMS, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = (
+    97_271_808, 1500, 8, 8)
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -147,7 +187,7 @@ MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
 # and the boundaries of the kernel's tiling (tiles of 4,096 floats inside
 # a row, a persistent grid): one element; rows spanning many tiles with
 # V % 4 = 1, 2, 3 (rows off the 16-byte grid); B > 8 (the [128, 256000]
-# batch phase 7 times); many rows of a few elements
+# batch phase 8 times); many rows of a few elements
 MINP_EDGE_SHAPES = ((1, 100), (4, 1024), (8, 50000), (3, 7), (5, 301),
                     (2, 1), (16, 2050), (1, 1), (7, 300001), (9, 99998),
                     (3, 1234567), (128, 256000), (70000, 3))
@@ -818,13 +858,7 @@ def run_lm_path(torch, report):
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = []
-
-    def walk(tree):
-        for v in tree.values():
-            walk(v) if isinstance(v, dict) else leaves.append(v)
-
-    walk(params)
+    leaves = param_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     expect(all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves),
@@ -944,7 +978,7 @@ def run_lm_path(torch, report):
     report["lm"]["device_busy"] = profile_decode_step(
         torch, lambda: M.decode_step(cfg, params, eng.cache, last, pos))
     del eng, params
-    torch.cuda.empty_cache()
+    free(torch)
     return counts, logits, tau
 
 
@@ -978,7 +1012,257 @@ def profile_decode_step(torch, fn) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# Phase 7: times and bounds at the main path's shapes
+# Phase 7: the MoE, RWKV, hybrid and encoder-decoder archs
+# --------------------------------------------------------------------- #
+
+def param_leaves(tree) -> list:
+    out = []
+    for v in tree.values():
+        out.extend(param_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def free(torch) -> None:
+    """Return the memory of dropped models to the card (an engine whose
+    methods were wrapped for timing holds itself in a cycle)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_vs_forward(torch, step, full, vocab: int, what: str,
+                      f32: bool = False) -> dict:
+    """A decode step's logits [B, V_pad] against the forward's at the
+    same position, over the ``vocab`` real logits (the padding ones are
+    -2e38 in both), within a tolerance of the largest: phase 6's bf16
+    one, or the float32 one."""
+    step, full = step[:, :vocab], full[:, :vocab]
+    diff = (step - full).abs()
+    scale = float(full.abs().max())
+    err, mean = float(diff.max()), float(diff.mean())
+    tol, mean_tol = ((F32_DECODE_TOL, F32_DECODE_MEAN_TOL) if f32
+                     else (DECODE_TOL, DECODE_MEAN_TOL))
+    expect(err <= tol * scale and mean <= mean_tol * scale,
+           f"{what}: decode vs forward max {err}, mean {mean}, largest "
+           f"logit {scale}")
+    return {"max_abs_err": err, "mean_abs_err": mean, "largest_logit": scale,
+            "same_argmax": (step.argmax(-1) == full.argmax(-1)).tolist()}
+
+
+def serve_arch(torch, arch: str, layers: int | None, n_expected: int,
+               check_dtype: str) -> tuple[dict, dict]:
+    """Serve ``arch`` at full width (``layers`` kept, if cut) through
+    ``ServeEngine`` with the min-p sampler on the ``minp_mask`` kernel;
+    check the mask on a decode step's logits, then decode against
+    forward in ``check_dtype``.  Returns (the arch's report, the engine
+    run's launch counts)."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm as M
+    from repro_torch.serve.engine import (
+        Request,
+        SamplerConfig,
+        ServeEngine,
+        threshold_mask,
+    )
+
+    cuda = torch.device("cuda")
+    cfg = get_config(arch)
+    rep: dict = {"arch": arch, "dtype": "bfloat16", "reduced": {}}
+    if layers is not None:
+        rep["reduced"] = {"num_layers": [cfg.num_layers, layers]}
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    leaves = param_leaves(params)
+    rep["params"] = sum(t.numel() for t in leaves)
+    rep["param_gb"] = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    expect(all(t.is_cuda for t in leaves) and rep["params"] == n_expected,
+           f"{arch}: {rep['params']} parameters, expected {n_expected}")
+    del leaves
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, ARCH_PROMPT)
+                    .astype(np.int32), max_new_tokens=ARCH_NEW)
+            for i in range(ARCH_REQUESTS)]
+    sc = SamplerConfig()
+    eng = ServeEngine(cfg, params, num_slots=ARCH_SLOTS,
+                      max_len=ARCH_MAX_LEN, sc=sc)
+    prefill_ms, step_ms = [], []
+
+    def timed(fn, into):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    eng.add_request = timed(eng.add_request, prefill_ms)
+    eng.step = timed(eng.step, step_ms)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    rep["peak_gb_serving"] = torch.cuda.max_memory_allocated() / 1e9
+    expect(sorted(r.rid for r in done) == list(range(ARCH_REQUESTS)),
+           f"{arch}: not every request finished")
+    for r in done:
+        expect(len(r.out_tokens) == ARCH_NEW and
+               all(0 <= t < cfg.vocab for t in r.out_tokens),
+               f"{arch} request {r.rid}: {len(r.out_tokens)} tokens")
+    expect(counts["minp_mask"] == len(step_ms) > 0,
+           f"{arch}: minp_mask launched {counts['minp_mask']} times in "
+           f"{len(step_ms)} decode steps")
+    tokens = sum(len(r.out_tokens) for r in done)
+
+    # the mask on the next decode step of the served cache
+    last = torch.from_numpy(np.array(
+        [[r.out_tokens[-1]] for r in done[-ARCH_SLOTS:]])).to(cuda)
+    pos = ARCH_PROMPT - 1 + ARCH_NEW
+    logits, _ = M.decode_step(cfg, params, eng.cache, last, pos)
+    logits = logits[:, 0].contiguous()
+    tau, masked = threshold_mask(logits, sc)
+    expect(same_bits(torch, masked, ref.minp_mask_ref(logits, tau)),
+           f"{arch}: minp_mask vs its plain version on real logits")
+    step_sorted = sorted(step_ms)
+    rep.update({
+        "requests": ARCH_REQUESTS, "prompt": ARCH_PROMPT,
+        "new_tokens": ARCH_NEW, "slots": ARCH_SLOTS,
+        "max_len": ARCH_MAX_LEN, "mask_shape": list(logits.shape),
+        "engine_s": run_s, "tokens": tokens, "tok_per_s": tokens / run_s,
+        "decode_steps": len(step_ms),
+        "decode_step_ms_median": float(np.median(step_ms)),
+        "decode_step_ms_min_max": [step_sorted[0], step_sorted[-1]],
+        "prefill_ms_median": float(np.median(prefill_ms)),
+        "prefill_ms_min_max": [min(prefill_ms), max(prefill_ms)],
+        "kept_per_row": (masked > ref.MINP_FILL).sum(-1).tolist(),
+        "launches": counts,
+    })
+    rep["device_busy"] = profile_decode_step(
+        torch, lambda: M.decode_step(cfg, params, eng.cache, last, pos))
+    del eng, logits, masked
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    # decode at position 255 against the forward over 2 x 256 tokens; an
+    # MoE on the no-drop factor, since at 1.25 a forward of 512 tokens
+    # drops assignments that a decode of 2 keeps
+    check = dataclasses.replace(cfg, param_dtype=check_dtype,
+                                compute_dtype=check_dtype)
+    if cfg.moe is not None:
+        check = dataclasses.replace(check, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    if check_dtype != cfg.param_dtype:
+        params = cast_tree(params, getattr(torch, check_dtype))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, ARCH_PROMPT))).to(cuda)
+    full = M.forward_logits(check, params, {"tokens": toks})[:, -1]
+    _, cache = M.prefill(check, params, {"tokens": toks[:, :-1]},
+                         max_len=ARCH_MAX_LEN)
+    step, _ = M.decode_step(check, params, cache, toks[:, -1:],
+                            ARCH_PROMPT - 1)
+    rep["decode_vs_forward"] = decode_vs_forward(
+        torch, step[:, 0], full, cfg.vocab, arch,
+        f32=check_dtype == "float32")
+    rep["decode_vs_forward"]["dtype"] = check_dtype
+    rep["peak_gb_check"] = torch.cuda.max_memory_allocated() / 1e9
+    del full, step, cache, params
+    free(torch)
+    return rep, counts
+
+
+def cast_tree(tree: dict, dtype) -> dict:
+    """A copy of a parameter tree with each leaf in ``dtype``, each
+    source leaf dropped as soon as it is copied."""
+    out = {}
+    for name in list(tree):
+        v = tree.pop(name)
+        out[name] = cast_tree(v, dtype) if isinstance(v, dict) else \
+            v.to(dtype)
+    return out
+
+
+def run_whisper(torch) -> dict:
+    """whisper-base at full size: encode 1,500 synthetic frames for a
+    batch of 2, prefill 8 tokens, decode 8 steps against the cross K/V,
+    each step against ``forward_logits`` at its position."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontends as F
+    from repro_torch.models import lm as M
+
+    cfg = get_config("whisper-base")
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in param_leaves(params))
+    expect(n_params == WHISPER_PARAMS, f"whisper: {n_params} parameters")
+    enc = F.synthetic_embeds(cfg, 2, WHISPER_FRAMES,
+                             torch.Generator("cuda").manual_seed(1))
+    total = WHISPER_PROMPT + WHISPER_STEPS
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, total))).to(torch.device("cuda"))
+    full = M.forward_logits(cfg, params, {"enc_embeds": enc, "tokens": toks})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = M.prefill(cfg, params, {"enc_embeds": enc,
+                                       "tokens": toks[:, :WHISPER_PROMPT]},
+                         max_len=total)
+    cross = M._cross_kv(cfg, params, M._encode(cfg, params, enc))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    steps, step_ms = [], []
+    for pos in range(WHISPER_PROMPT, total):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = M.decode_step(cfg, params, cache,
+                                      toks[:, pos:pos + 1], pos, cross=cross)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        steps.append(decode_vs_forward(torch, logits[:, 0], full[:, pos],
+                                       cfg.vocab, f"whisper position {pos}"))
+    rep = {"arch": "whisper-base", "dtype": "bfloat16", "params": n_params,
+           "batch": 2, "frames": WHISPER_FRAMES, "prompt": WHISPER_PROMPT,
+           "decode_steps": WHISPER_STEPS,
+           "prefill_and_encode_ms": prefill_ms,
+           "decode_step_ms_median": float(np.median(step_ms)),
+           "decode_vs_forward_max_abs_err": max(s["max_abs_err"]
+                                                for s in steps),
+           "decode_vs_forward_mean_abs_err": max(s["mean_abs_err"]
+                                                 for s in steps),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, cache, cross, full, enc
+    free(torch)
+    return rep
+
+
+def run_arch_paths(torch, report) -> dict:
+    """Phase 7; returns the launch counts summed over its engine runs."""
+    report["archs"] = []
+    total: dict = {}
+    for arch, layers, n_params, check_dtype in ARCH_PATHS:
+        t0 = time.perf_counter()
+        rep, counts = serve_arch(torch, arch, layers, n_params, check_dtype)
+        rep["phase_s"] = time.perf_counter() - t0
+        report["archs"].append(rep)
+        log(f"phase 7: {arch} ok {json.dumps(rep)}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    report["whisper"] = run_whisper(torch)
+    log(f"phase 7: whisper-base ok {json.dumps(report['whisper'])}")
+    return total
+
+
+# --------------------------------------------------------------------- #
+# Phase 8: times and bounds at the main path's shapes
 # --------------------------------------------------------------------- #
 
 def median_ms(torch, fn, reps: int = 20, batch: int = 1) -> float:
@@ -1445,9 +1729,10 @@ def main() -> int:
 
     lcounts, lm_logits, lm_tau = run_lm_path(torch, report)
     log(f"phase 6: LM serving ok {json.dumps(report['lm'])}")
+    acounts = run_arch_paths(torch, report)
 
     launches = {k: tcounts[k] + gcounts[k] + fcounts[k] + lcounts[k]
-                for k in tcounts}
+                + acounts[k] for k in tcounts}
     rows = measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau,
                    launches, report)
     report["kernels"] = rows

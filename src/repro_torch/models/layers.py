@@ -1,5 +1,6 @@
 """Transformer building blocks: norms, RoPE, GQA attention (sliding
-window / softcap / bias variants) and the MLP variants.
+window / softcap / bias variants, cross and bidirectional), the MLP
+variants and capacity-based MoE.
 
 Counterpart of the reference package's ``models/layers.py``, in plain
 tensor functions over explicit parameter dicts, with the same layouts:
@@ -19,8 +20,9 @@ float that meets a bf16 tensor is first rounded to bf16, as JAX rounds a
 weakly typed scalar (:func:`weak_scalar`).  Every
 ``*_init`` draws from an explicit ``torch.Generator`` with the
 reference's scales.  Not ported yet (``ROADMAP.md`` Queue 1, "the
-modules still missing"): ``moe``, and the knobs ``attn_shard_heads``,
-``sp_decode`` and ``attn_q_chunk``; they raise ``NotImplementedError``.
+modules still missing"): the mesh and perf knobs ``attn_shard_heads``,
+``sp_decode``, ``attn_q_chunk`` and ``moe_dp_sharding``; they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,13 +61,14 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _normal(shape, scale: float, cfg: ModelConfig, gen: torch.Generator,
-            device: torch.device, lead: tuple[int, ...] = ()
-            ) -> torch.Tensor:
-    """Standard normal draws in the parameter dtype, times ``scale`` in
-    that dtype (as the reference scales its draws).  ``lead`` prefixes
-    the shape, so a period-stacked leaf is drawn in one piece."""
-    x = torch.randn(lead + tuple(shape), generator=gen, dtype=pdtype(cfg),
-                    device=gen.device)
+            device: torch.device, lead: tuple[int, ...] = (),
+            dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Standard normal draws in ``dtype`` (the parameter dtype unless
+    named), times ``scale`` in that dtype (as the reference scales its
+    draws).  ``lead`` prefixes the shape, so a period-stacked leaf is
+    drawn in one piece."""
+    x = torch.randn(lead + tuple(shape), generator=gen,
+                    dtype=dtype or pdtype(cfg), device=gen.device)
     return x.mul_(scale).to(device)
 
 
@@ -164,17 +167,20 @@ def _check_knobs(cfg: ModelConfig) -> None:
 
 
 def project_kv(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+               positions: torch.Tensor | None, rope_keys: bool = True
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """K/V projections in flat cache layout [B, S, KV*dh], RoPE applied
-    to the keys."""
+    to the keys unless ``rope_keys`` is False."""
     kv, dh = cfg.n_kv_heads, cfg.d_head
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    kh = k.reshape(*k.shape[:-1], kv, dh)
-    return rope(kh, positions, cfg.rope_theta).reshape(k.shape), v
+    if rope_keys:
+        kh = k.reshape(*k.shape[:-1], kv, dh)
+        k = rope(kh, positions, cfg.rope_theta).reshape(k.shape)
+    return k, v
 
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
@@ -203,21 +209,25 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
               q_pos: torch.Tensor, k: torch.Tensor | None = None,
               v: torch.Tensor | None = None,
-              window: int | None = None) -> torch.Tensor:
-    """Causal self-attention over the full sequence.  x: [B, S, D].  If
-    ``k``/``v`` are given, they are :func:`project_kv` of ``x``, already
-    computed; otherwise they are projected here.  The reference's
-    ``cross=True`` (cross-attention and the encoder) belongs to the
-    encoder-decoder, not ported yet."""
+              window: int | None = None,
+              cross: bool = False) -> torch.Tensor:
+    """Full (training/prefill) attention.  x: [B, S, D].  If ``k``/``v``
+    are given, they are flat [B, Sk, KV*dh] projections already computed
+    (:func:`project_kv` of ``x``, or an encoder's cross K/V); otherwise
+    self-attention projects them from x.  ``cross=True`` => no mask, no
+    RoPE (cross-attention, and the bidirectional encoder)."""
     _check_knobs(cfg)
     h, dh = cfg.n_heads, cfg.d_head
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = rope(q.reshape(*x.shape[:-1], h, dh), q_pos, cfg.rope_theta)
+    q = q.reshape(*x.shape[:-1], h, dh)
+    if not cross:
+        q = rope(q, q_pos, cfg.rope_theta)
     if k is None:
-        k, v = project_kv(cfg, p, x, q_pos)
-    mask = _attn_mask(q_pos, q_pos, window)[None, None, None]
+        k, v = project_kv(cfg, p, x, q_pos, rope_keys=not cross)
+    mask = None if cross else _attn_mask(q_pos, q_pos, window)[None, None,
+                                                               None]
     out = _attend(cfg, q, k, v, mask)
     return out @ p["wo"].to(x.dtype)
 
@@ -298,9 +308,83 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_out"].to(x.dtype)
 
 
+# ------------------------------ MoE ----------------------------------- #
+
+def moe_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
+             lead: tuple[int, ...] = ()) -> Params:
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    return {
+        "router": _normal((d, e), s_in, cfg, gen, device, lead,
+                          dtype=torch.float32),
+        "w_in": _normal((e, d, f), s_in, cfg, gen, device, lead),
+        "w_gate": _normal((e, d, f), s_in, cfg, gen, device, lead),
+        "w_out": _normal((e, f, d), s_out, cfg, gen, device, lead),
+    }
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values of each row and their indices, as
+    ``jax.lax.top_k`` gives them: among equal values the lower index
+    first (``torch.topk`` orders ties otherwise)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_dispatch(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor,
+                 capacity_factor: float):
+    """The routing of :func:`moe` for tokens ``xf`` [N, D]: (gates
+    [N, K] float32, each assignment's expert ``flat_e`` [N*K], its slot
+    in that expert's queue, ``keep`` = slot < cap, cap).  Slots go first
+    come, first served: a stable sort by expert id ranks the N*K
+    assignments in token order."""
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    n = xf.shape[0]
+    logits = xf.float() @ router                               # [N, E]
+    gate_vals, gate_idx = top_k(logits, k)                     # [N, K]
+    gates = torch.softmax(gate_vals, dim=-1)
+    cap = max(min(int(math.ceil(n * k / e * capacity_factor)), n * k), 8)
+    flat_e = gate_idx.reshape(-1)                              # [N*K]
+    nk = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(e, dtype=torch.int64, device=xf.device
+                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    offsets = torch.cumsum(counts, 0) - counts
+    ranks_sorted = torch.arange(nk, device=xf.device) - offsets[flat_e[order]]
+    slot = torch.empty_like(ranks_sorted).scatter_(0, order, ranks_sorted)
+    return gates, flat_e, slot, slot < cap, cap
+
+
 def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
         capacity_factor: float | None = None) -> torch.Tensor:
-    raise not_ported("layers.moe (mixtral, granite, jamba)")
+    """Top-k routing with a fixed expert capacity (GShard-style, token
+    dropping), with the reference's static shapes: every expert runs
+    over its ``cap`` slots, empty ones zero.  A token whose slot is past
+    ``cap`` gets nothing from that expert."""
+    if cfg.moe_dp_sharding:
+        raise not_ported("ModelConfig.moe_dp_sharding")
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    if capacity_factor is None:
+        capacity_factor = cfg.moe.capacity_factor
+    b, s, d = x.shape
+    n = b * s
+    xf = x.reshape(n, d)
+    gates, flat_e, slot, keep, cap = moe_dispatch(cfg, p["router"], xf,
+                                                  capacity_factor)
+    # the kept (expert, slot) pairs are distinct: each row is assigned
+    # once, and every dropped assignment lands in one extra row, cut off
+    dest = torch.where(keep, flat_e * cap + slot, e * cap)
+    buf = x.new_zeros((e * cap + 1, d))
+    buf[dest] = xf.repeat_interleave(k, 0)
+    buf = buf[:-1].view(e, cap, d)
+    hin = torch.einsum("ecd,edf->ecf", buf, p["w_in"].to(x.dtype))
+    hg = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(x.dtype))
+    h = F.silu(hg) * hin
+    out = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(x.dtype))
+    tok_out = out[flat_e, torch.where(keep, slot, 0)]          # [N*K, D]
+    tok_out = torch.where(keep[:, None], tok_out, 0)
+    tok_out = tok_out.reshape(n, k, d) * gates[..., None].to(x.dtype)
+    return tok_out.sum(dim=1).reshape(b, s, d)
 
 
 # --------------------------- embeddings -------------------------------- #

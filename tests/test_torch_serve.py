@@ -1,11 +1,13 @@
 """LM serving: the port's ``ServeEngine`` and sampler against JAX's.
 
 Parameters cross from ``repro``'s ``init_params`` through
-``repro_torch.convert.lm_params``; the reduced dense archs run in float32
-on the CPU, where the sampler's ``minp_mask`` takes its plain version.
+``repro_torch.convert.lm_params``; the reduced archs run in float32 on
+the CPU, where the sampler's ``minp_mask`` takes its plain version.
 
 * Greedy serving (3 requests, 2 slots, as the reference's launcher runs
-  it) emits the same tokens, token for token.
+  it) emits the same tokens, token for token, for the dense archs and
+  the MoE (at the serving capacity factor), RWKV and hybrid ones.
+* Decode writes the new SSM and RWKV states into the engine's cache.
 * Sampling draws from a ``torch.Generator``, so its tokens cannot equal
   JAX's: on the same decode-step logits, the threshold and the masked
   logits are bit-equal to what JAX's ``sample`` computes, every draw
@@ -39,6 +41,8 @@ from repro_torch.serve import engine as E
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ["minitron-8b", "nemotron-4-340b", "qwen2.5-32b", "gemma2-27b"]
+MOE_SSM = ["granite-moe-3b-a800m", "mixtral-8x7b", "rwkv6-3b",
+           "jamba-v0.1-52b"]
 
 
 def _setup(arch: str):
@@ -65,7 +69,7 @@ def _decode_logits(arch: str) -> tuple[np.ndarray, int]:
     return np.array(logits[:, 0]), cfg.vocab
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_SSM)
 def test_greedy_engine_emits_the_reference_tokens(arch):
     cfg, jp, tp = _setup(arch)
     want = JE.ServeEngine(cfg, jp, num_slots=2, max_len=32,
@@ -175,6 +179,51 @@ def test_engine_updates_the_cache_in_place_like_the_reference():
                 np.testing.assert_array_equal(got, arr)
             else:
                 np.testing.assert_allclose(got, arr, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_decode_updates_ssm_and_rwkv_states_in_place(arch):
+    """The engine keeps the cache dict that ``decode_step`` returns, so
+    the step must write its new recurrent states into that dict's
+    tensors.  One step on a prefilled cache: the same dict and storage
+    come back, holding the reference's new states; then the engine's
+    cache after serving equals the reference's.  The RWKV state sums
+    k^T v over every token and grows to ~64 (f32 ulp 7.6e-6), so leaves
+    are held within 1e-4 + 1e-5 |value|."""
+    cfg, jp, tp = _setup(arch)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 9))
+    _, jc = JM.prefill(cfg, jp, {"tokens": jnp.asarray(toks[:, :-1])},
+                       max_len=16)
+    _, tc = M.prefill(cfg, tp, {"tokens": torch.from_numpy(toks[:, :-1])},
+                      max_len=16)
+    before = {(b, n): (t.data_ptr(), t.clone())
+              for b, leaves in tc.items() for n, t in leaves.items()}
+    _, jc = JM.decode_step(cfg, jp, jc, jnp.asarray(toks[:, -1:]),
+                           jnp.int32(8))
+    _, out = M.decode_step(cfg, tp, tc, torch.from_numpy(toks[:, -1:]), 8)
+    assert out is tc
+    states = [k for k in before if k[1] in ("ssm", "conv", "state", "x_tm",
+                                            "x_cm")]
+    assert states
+    for (blk, name), (ptr, old) in before.items():
+        t = tc[blk][name]
+        assert t.data_ptr() == ptr, (blk, name)
+        if (blk, name) in states:
+            assert not torch.equal(t, old), (blk, name)
+        np.testing.assert_allclose(t.numpy(), np.asarray(jc[blk][name]),
+                                   rtol=1e-5, atol=1e-4,
+                                   err_msg=f"{blk}/{name}")
+    je = JE.ServeEngine(cfg, jp, num_slots=2, max_len=32,
+                        sc=JE.SamplerConfig(greedy=True))
+    te = E.ServeEngine(cfg, tp, num_slots=2, max_len=32,
+                       sc=E.SamplerConfig(greedy=True), device="cpu")
+    je.run(_requests(JE, cfg, n=3, new=4))
+    te.run(_requests(E, cfg, n=3, new=4))
+    for blk, leaves in jax.tree.map(np.asarray, je.cache).items():
+        for name, arr in leaves.items():
+            np.testing.assert_allclose(te.cache[blk][name].numpy(), arr,
+                                       rtol=1e-5, atol=1e-4,
+                                       err_msg=f"{blk}/{name}")
 
 
 def test_launcher_prints_the_reference_keys_on_cpu():
