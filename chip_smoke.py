@@ -89,6 +89,24 @@ Phases (any failure exits non-zero; none is caught and passed over):
    and the predicate and compound timed again on the LUT and on a fresh
    copy of it (``cold_ms_again``, ``cold_ms_fresh_lut``);
    print the ``kernels`` JSON line and, last, the ok line.
+9. Training, last, on a clean card (the LUT, forest and models of
+   phases 3-7 dropped): reduced ``granite-moe-3b-a800m`` in float32,
+   two train steps and two compressed DDP steps on the card and on the
+   CPU from one set of parameters, loss and grad_norm within 1e-5
+   relative; then ``granite-moe-3b-a800m`` at full width and depth
+   (3.37 B parameters, bf16, float32 moments, remat on) trained 6 steps
+   through ``make_train_step`` on ``SHAPES["train_4k"]`` cut to a global
+   batch of 4 (4 microbatches of one 4,096-token sequence) from
+   ``SyntheticLM(seed=0)``, ``OptConfig(lr=3e-4, warmup_steps=2,
+   total_steps=6)``: every loss finite, the step-0 loss within 1.5 of
+   ln(vocab) + 2, step 0's batch lower after the 6 steps; step times,
+   peak memory and a profiled step.  Then the restart through
+   ``run_training`` at full width cut to 4 of 32 layers (a checkpoint
+   of the full model is 33.7 GB, and the card's machine allows 45 GiB
+   of disk writes a run): 6 steps against 3 steps, a checkpoint and a
+   fresh resumed run to step 6, steps 3-5 within 2e-3; the checkpoint
+   save and restore times; a step there with remat and without.  None
+   of our kernels runs in training (their counts stay 0).
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -100,6 +118,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -180,6 +199,32 @@ ARCH_REQUESTS, ARCH_SLOTS, ARCH_MAX_LEN = 8, 8, 512
 ARCH_PROMPT, ARCH_NEW = 256, 16
 WHISPER_PARAMS, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = (
     97_271_808, 1500, 8, 8)
+# phase 9: granite-moe-3b-a800m trained at full width (bf16 parameters,
+# float32 moments, remat on): SHAPES["train_4k"] cut to a global batch
+# of 4 (4 microbatches of one 4,096-token sequence), 6 steps from
+# SyntheticLM(seed=0), a restart at step 3; the restart is held within
+# the reference's own 2e-3 (tests/test_train_system.py), since the
+# index backward (embedding, MoE combine) adds with atomics on the card
+TRAIN_ARCH, TRAIN_PARAMS = "granite-moe-3b-a800m", 3_374_679_552
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 4, 4
+TRAIN_STEPS, TRAIN_RESTART = 6, 3
+# the restart runs full width at 4 of 32 layers: a checkpoint of the full
+# model is 33.7 GB (bf16 parameters, two float32 moments) and the restart
+# writes three, where the card's machine allows 45 GiB of disk writes a
+# run; at 4 layers one is 5.6 GB
+TRAIN_RESTART_LAYERS = 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+RESTART_TOL = 2e-3
+# the step-0 loss of random weights: within 1.5 of ln(vocab) + 2.  The
+# final norm multiplies the unit-RMS stream by 1 + scale = 2 at init and
+# the head's entries are N(0, 1/d_model), so the logits are N(0, 2^2)
+# and E[logsumexp] = ln(vocab) + 2^2 / 2 (reduced granite: 8.24 against
+# ln(512) + 2 = 8.24, in both packages); the gold logit averages 0
+LOSS0_TOL, LOSS0_ABOVE_LN_V = 1.5, 2.0
+# reduced granite in float32, the card against the CPU: two train steps
+# and two compressed DDP steps from the same parameters, loss and
+# grad_norm within 1e-5 relative (float32 sums in other orders)
+CARD_CPU_RTOL = 1e-5
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -982,14 +1027,16 @@ def run_lm_path(torch, report):
     return counts, logits, tau
 
 
-def profile_decode_step(torch, fn) -> dict:
-    """One decode step under ``torch.profiler``: the kernels' summed
-    device time against the step's wall-clock (median of 5 unprofiled
-    steps), and the five largest device-time entries."""
+def profile_decode_step(torch, fn, reps: int = 5, ops: int = 0) -> dict:
+    """One step (a decode step, or a train step) under
+    ``torch.profiler``: the kernels' summed device time against the
+    step's wall-clock (median of ``reps`` unprofiled steps), the five
+    largest device-time entries and, if ``ops``, the ``ops`` PyTorch
+    operators whose kernels took the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
-    for _ in range(5):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
@@ -1005,10 +1052,17 @@ def profile_decode_step(torch, fn) -> dict:
     expect(device_ms > 0, "the profiler saw no device time")
     wall = float(np.median(walls))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    return {"step_wall_ms": wall, "device_ms": device_ms,
-            "device_idle_share": max(0.0, 1 - device_ms / wall),
-            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                    for e in top]}
+    out = {"step_wall_ms": wall, "device_ms": device_ms,
+           "device_idle_share": max(0.0, 1 - device_ms / wall),
+           "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                   for e in top]}
+    if ops:
+        cpu = sorted((e for e in prof.key_averages()
+                      if e.device_type.name == "CPU"),
+                     key=lambda e: -e.self_device_time_total)[:ops]
+        out["top_ops"] = [[e.key, e.self_device_time_total / 1e3, e.count]
+                          for e in cpu]
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1259,6 +1313,266 @@ def run_arch_paths(torch, report) -> dict:
     report["whisper"] = run_whisper(torch)
     log(f"phase 7: whisper-base ok {json.dumps(report['whisper'])}")
     return total
+
+
+# --------------------------------------------------------------------- #
+# Phase 9: training at full width
+# --------------------------------------------------------------------- #
+
+def card_vs_cpu_training(torch) -> dict:
+    """Reduced granite in float32 from one set of parameters, on the card
+    and on the CPU: two train steps (2 microbatches) and two compressed
+    DDP steps, loss and grad_norm within ``CARD_CPU_RTOL``."""
+    import copy
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import ddp as D
+    from repro_torch.models import lm as M
+    from repro_torch.serve.engine import to_device
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    oc = O.OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    src = SyntheticLM(cfg, SHAPES["train_4k"].reduced(), seed=0,
+                      microbatches=2)
+    out: dict = {}
+    for dev in ("cuda", "cpu"):
+        params = to_device(copy.deepcopy(cpu_params), torch.device(dev))
+        opt = O.init_opt_state(oc, params)
+        step = T.make_train_step(cfg, oc)
+        rows = []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in src.batch_at(i).items()}
+            params, opt, st = step(params, opt, batch)
+            rows.append([float(st["loss"]), float(st["grad_norm"])])
+        params = to_device(copy.deepcopy(cpu_params), torch.device(dev))
+        opt, err = O.init_opt_state(oc, params), D.init_error_state(params)
+        dstep = D.make_ddp_step(cfg, oc, compress=True)
+        for i in range(2):
+            batch = {k: torch.from_numpy(v[0]).to(dev)
+                     for k, v in src.batch_at(i).items()}
+            params, opt, err, loss = dstep(params, opt, err, batch)
+            rows.append([float(loss)])
+        out[dev] = rows
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        for x, y in zip(a, b):
+            expect(np.isfinite(x) and abs(x - y) <= CARD_CPU_RTOL * abs(y),
+                   f"card vs CPU, step row {i}: {a} vs {b}")
+    return {"train_loss_grad_norm": out["cuda"][:2],
+            "cpu": out["cpu"][:2], "ddp_loss": out["cuda"][2:],
+            "ddp_loss_cpu": out["cpu"][2:], "rtol": CARD_CPU_RTOL}
+
+
+class CheckpointTimer:
+    """Wraps the checkpoint manager's ``save`` and ``restore`` while a run
+    lasts, timing each save through its write (the loop waits for it at
+    the end of a run anyway) and each restore."""
+
+    def __init__(self, torch) -> None:
+        from repro_torch.train import checkpoint as C
+
+        self.torch, self.C = torch, C
+        self.saves: list[float] = []
+        self.restores: list[float] = []
+        self.saved_bytes = 0
+
+    def __enter__(self):
+        torch, mgr_cls = self.torch, self.C.CheckpointManager
+        save, restore = mgr_cls.save, mgr_cls.restore
+        self._orig = save, restore
+
+        def timed_save(mgr, step, tree, *a, **kw):
+            t = time.perf_counter()
+            save(mgr, step, tree, *a, **kw)
+            mgr.wait()
+            self.saves.append(time.perf_counter() - t)
+            self.saved_bytes = sum(x.numel() * x.element_size()
+                                   for x in param_leaves(tree))
+
+        def timed_restore(mgr, *a, **kw):
+            t = time.perf_counter()
+            out = restore(mgr, *a, **kw)
+            torch.cuda.synchronize()
+            self.restores.append(time.perf_counter() - t)
+            return out
+
+        mgr_cls.save, mgr_cls.restore = timed_save, timed_restore
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.C.CheckpointManager.save, self.C.CheckpointManager.restore = \
+            self._orig
+
+
+def train_full_depth(torch, cfg, shape, oc) -> dict:
+    """The full model trained ``TRAIN_STEPS`` steps through
+    ``make_train_step`` on ``SyntheticLM(seed=0)``'s batches, as
+    ``run_training`` feeds them, each step timed (synchronised); then a
+    step profiled.  No checkpoint: one of the full model is 33.7 GB."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in param_leaves(params))
+    expect(n_params == TRAIN_PARAMS, f"{n_params} parameters")
+    opt = O.init_opt_state(oc, params)
+    step = T.make_train_step(cfg, oc)
+    src = SyntheticLM(cfg, shape, seed=0, microbatches=TRAIN_MICRO)
+    losses, norms, steps_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in src.batch_at(i).items()}
+        t = time.perf_counter()
+        params, opt, st = step(params, opt, batch)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(st["loss"]))
+        norms.append(float(st["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the loss of step 0's batch again, after the steps: each step draws
+    # new sequences of a 49,155-token bigram chain, so the logged loss of
+    # an untrained model spreads by a few hundredths from batch to batch,
+    # while the batch the model was stepped on must come out lower
+    with torch.no_grad():
+        b0 = {k: torch.from_numpy(v).cuda()
+              for k, v in src.batch_at(0).items()}
+        refit = float(torch.stack([
+            M.forward_loss(cfg, params, {k: v[i] for k, v in b0.items()})
+            for i in range(TRAIN_MICRO)]).mean())
+    busy = profile_decode_step(torch, lambda: step(params, opt, batch),
+                               reps=2, ops=16)
+    del params, opt, batch, b0
+    free(torch)
+    med = float(np.median(steps_ms[1:]))
+    return {"params": n_params, "losses": losses, "grad_norms": norms,
+            "step0_batch_loss_after": refit,
+            "step_ms": steps_ms, "step_ms_median_1_5": med,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3),
+            "peak_gb": peak, "device_busy": busy}
+
+
+def remat_cost(torch, cfg, shape, oc) -> dict:
+    """Step wall-clock with remat on and off (median of 2 steps after one
+    more), on the model cut to ``TRAIN_RESTART_LAYERS``: at full depth
+    the activations without remat do not fit the card."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+
+    src = SyntheticLM(cfg, shape, seed=0, microbatches=TRAIN_MICRO)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in src.batch_at(0).items()}
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        params = M.init_params(c, torch.Generator("cuda").manual_seed(0))
+        opt = O.init_opt_state(oc, params)
+        step = T.make_train_step(c, oc)
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        out["remat" if remat else "no_remat"] = {
+            "step_ms": float(np.median(walls[1:])),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, opt, step
+        free(torch)
+    return out
+
+
+def run_training_path(torch, report) -> dict:
+    """Phase 9: full-width granite trained on the card, 6 steps at full
+    depth through ``make_train_step`` (step times, peak memory, a step
+    profiled), then the restart through ``run_training`` at
+    ``TRAIN_RESTART_LAYERS``: 6 steps uninterrupted, against 3 steps, a
+    checkpoint and a fresh resumed run to step 6.  Returns the launch
+    counts of our kernels over the training (none is on the path)."""
+    import shutil
+    import tempfile
+
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.loop import TrainConfig, run_training
+
+    t_phase = time.perf_counter()
+    rep: dict = {"arch": TRAIN_ARCH, "seq_len": TRAIN_SEQ,
+                 "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+                 "reduced": {"global_batch": [256, TRAIN_BATCH]}}
+    rep["card_vs_cpu"] = card_vs_cpu_training(torch)
+    log(f"phase 9: reduced granite, card vs CPU ok "
+        f"{json.dumps(rep['card_vs_cpu'])}")
+    free(torch)
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    oc = O.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, opt_dtype=cfg.opt_dtype)
+    K.reset_launch_counts()
+    rep.update(train_full_depth(torch, cfg, shape, oc))
+    log(f"phase 9: full depth {json.dumps(rep)}")
+    losses = rep["losses"]
+    expect(all(np.isfinite(losses)), f"training losses {losses}")
+    loss0 = float(np.log(cfg.vocab)) + LOSS0_ABOVE_LN_V
+    expect(abs(losses[0] - loss0) <= LOSS0_TOL,
+           f"step-0 loss {losses[0]} vs ln(vocab) + 2 = {loss0}")
+    expect(rep["step0_batch_loss_after"] < losses[0],
+           f"the loss did not fall: step 0's batch {losses[0]} before, "
+           f"{rep['step0_batch_loss_after']} after {TRAIN_STEPS} steps")
+
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_RESTART_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    def train(name: str, steps: int, every: int,
+              timer: CheckpointTimer) -> dict:
+        tc = TrainConfig(steps=steps, microbatches=TRAIN_MICRO,
+                         checkpoint_every=every, log_every=1,
+                         checkpoint_dir=os.path.join(tmp, name),
+                         keep_checkpoints=1)
+        with timer:
+            out = run_training(cut, shape, tc, oc)
+        free(torch)
+        return out
+
+    timers = [CheckpointTimer(torch) for _ in range(3)]
+    try:
+        full = train("a", TRAIN_STEPS, 10 ** 9, timers[0])
+        shutil.rmtree(os.path.join(tmp, "a"))
+        train("b", TRAIN_RESTART, TRAIN_RESTART, timers[1])
+        resumed = train("b", TRAIN_STEPS, TRAIN_RESTART, timers[2])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep["remat_cost"] = remat_cost(torch, cut, shape, oc)
+    launches = K.launch_counts()
+    want = [r["loss"] for r in full["log"]][TRAIN_RESTART:]
+    got = [r["loss"] for r in resumed["log"]]
+    expect(resumed["steps"] == TRAIN_STEPS - TRAIN_RESTART and
+           np.allclose(got, want, rtol=RESTART_TOL, atol=RESTART_TOL),
+           f"restarted losses {got} vs {want}")
+    rep["restart"] = {
+        "reduced": {"num_layers": [cfg.num_layers, TRAIN_RESTART_LAYERS]},
+        "losses": [r["loss"] for r in full["log"]], "resumed_losses": got,
+        "max_abs_diff": float(np.max(np.abs(np.subtract(got, want)))),
+        "checkpoint_gb": timers[1].saved_bytes / 1e9,
+        "save_s": [t for tm in timers for t in tm.saves],
+        "restore_s": timers[2].restores,
+    }
+    rep["launches"] = launches
+    rep["phase_s"] = time.perf_counter() - t_phase
+    report["train"] = rep
+    return launches
 
 
 # --------------------------------------------------------------------- #
@@ -1736,6 +2050,15 @@ def main() -> int:
     rows = measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau,
                    launches, report)
     report["kernels"] = rows
+    # phase 9 on a clean card: the LUT, the forest and the models go
+    del tsession, thandle, gsession, ghandle, table_ex, gbdt_ex, X, addrs
+    del predictions, lm_logits, lm_tau
+    free(torch)
+    tlaunches = run_training_path(torch, report)
+    expect(not any(tlaunches.values()),
+           f"training launched kernels of ours: {tlaunches}")
+    log(f"phase 9: training ok {json.dumps(report['train'])}")
+
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)
     report["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9

@@ -53,7 +53,7 @@ def array_to_torch(arr: np.ndarray, device="cpu") -> torch.Tensor:
     """A NumPy array as a tensor with the same values, bit for bit.  A
     bfloat16 array (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
     refuses) crosses as its 16-bit patterns, viewed as ``torch.bfloat16``."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.require(arr, requirements="C")       # keeps a 0-d array 0-d
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(arr.view(np.int16).copy())
         return bits.view(torch.bfloat16).to(device)
@@ -67,3 +67,13 @@ def lm_params(np_tree: dict, device="cpu") -> dict:
     return {k: lm_params(v, device) if isinstance(v, dict)
             else array_to_torch(np.asarray(v), device)
             for k, v in np_tree.items()}
+
+
+def opt_state(np_tree: dict, device="cpu") -> dict:
+    """The reference's AdamW state (``mu`` and ``nu`` trees, a 0-d
+    ``count``), as NumPy, to the port's: each leaf bit-equal, ``count``
+    a 0-d int32 tensor."""
+    return {"mu": lm_params(np_tree["mu"], device),
+            "nu": lm_params(np_tree["nu"], device),
+            "count": torch.tensor(int(np.asarray(np_tree["count"])),
+                                  dtype=torch.int32, device=device)}

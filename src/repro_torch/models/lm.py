@@ -6,12 +6,17 @@ functions keep its layouts, so a test compares trees leaf by leaf:
 parameters and caches are nested dicts of tensors whose per-block leaves
 carry a leading period axis (``[num_periods, ...]``; caches
 ``[num_periods, B, ...]``).  The reference's ``lax.scan`` over periods
-is a Python loop over period indices here, and there is no jit.
+is a Python loop over period indices here, and there is no jit.  Where
+``cfg.remat`` is set and grad is enabled, each period of the forward
+runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body): its activations are recomputed in
+the backward, and the numbers stay the same.
 
 Public surface:
   init_params                       -- params, from a torch.Generator
   forward_logits                    -- full-sequence logits (tokens or
                                        embeds, + enc_embeds for enc-dec)
+  forward_loss                      -- training loss, through autograd
   prefill                           -- forward + KV/state cache construction
   init_cache / decode_step          -- one-token decode (cache in place)
 """
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
@@ -46,6 +52,19 @@ def _period(tree: Params, i: int) -> Params:
     """Period ``i``'s slice of a period-stacked tree (views, no copy)."""
     return {k: _period(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unbind(tree: Params, n: int) -> list[Params]:
+    """The ``n`` period slices of a period-stacked tree, one ``unbind``
+    a leaf: its backward stacks the slices' gradients once, where ``n``
+    indexings would each write a zero-filled gradient of the whole
+    leaf."""
+    out: list[Params] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for o, part in zip(out, parts):
+            o[k] = part
+    return out
 
 
 def _stack(trees: list[Params]) -> Params:
@@ -180,10 +199,13 @@ def _encode(cfg: ModelConfig, params: Params, embeds: torch.Tensor
     x = embeds + _sinusoid(embeds.shape[1], embeds.shape[2], embeds.dtype,
                            embeds.device)[None]
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.enc_layers):
-        x = _apply_block(cfg, "attn", _period(params["enc_periods"],
-                                              i)["block0"],
-                         x, positions, causal=False)
+
+    def body(x, pp):
+        return _apply_block(cfg, "attn", pp["block0"], x, positions,
+                            causal=False)
+
+    x = _scan_periods(cfg, body, x, _unbind(params["enc_periods"],
+                                            cfg.enc_layers))
     return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -195,6 +217,19 @@ def _cross_kv(cfg: ModelConfig, params: Params, enc_x: torch.Tensor
     return {name: torch.stack([enc_x @ w[i].to(enc_x.dtype)
                                for i in range(cfg.num_periods)])
             for name, w in (("k", p["wk"]), ("v", p["wv"]))}
+
+
+def _scan_periods(cfg: ModelConfig, body, x: torch.Tensor,
+                  args: list) -> torch.Tensor:
+    """``x = body(x, *a)`` for each period's ``a`` in ``args`` (a tree,
+    or a tuple of them); each period rematerialised where ``cfg.remat``
+    is set and grad is enabled."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for a in args:
+        a = a if isinstance(a, tuple) else (a,)
+        x = (checkpoint(body, x, *a, use_reentrant=False) if remat
+             else body(x, *a))
+    return x
 
 
 def _inputs(cfg: ModelConfig, params: Params, batch: Params
@@ -219,14 +254,34 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: Params
     [B, S, V_pad] float32."""
     x, cross = _inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.num_periods):
-        pp = _period(params["periods"], i)
-        ckv = _period(cross, i) if cross is not None else None
+    n = cfg.num_periods
+
+    def body(x, pp, ckv=None):
         for j, kind in enumerate(cfg.block_pattern):
             x = _apply_block(cfg, kind, pp[f"block{j}"], x, positions,
                              enc_out=ckv)
+        return x
+
+    args = _unbind(params["periods"], n)
+    if cross is not None:
+        args = list(zip(args, _unbind(cross, n)))
+    x = _scan_periods(cfg, body, x, args)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head(cfg, params["embed"], x)
+
+
+def forward_loss(cfg: ModelConfig, params: Params, batch: Params
+                 ) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``forward_logits`` (the padded
+    vocab, as the reference).  labels: [B, S] integer, < 0 = pad: those
+    positions are left out of the sum and of the count."""
+    logits = forward_logits(cfg, params, batch)       # [B, S, V] f32
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1.0)
 
 
 # ------------------------------------------------------------------ #

@@ -44,7 +44,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "kernels.bitserial_cmp", "kernels.leaf_gather",
               "kernels.fused_query", "kernels.ops", "kernels.minp_mask",
               "configs.registry", "models.layers", "models.lm",
-              "serve.engine", "launch.serve"):
+              "serve.engine", "launch.serve", "data.pipeline",
+              "train.tree", "train.optimizer", "train.train_step",
+              "train.checkpoint", "train.straggler", "train.loop",
+              "launch.train", "dist.compression", "dist.ddp"):
         assert f"repro_torch.{m}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -96,6 +99,25 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         ops.sample_threshold_mask(logits, np.zeros(2, np.float32))
     assert ops.sample_threshold_mask(logits, np.zeros(2, np.float32),
                                      device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(
+        monkeypatch, tmp_path):
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import TrainConfig, run_training
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ARCHS["minitron-8b"].reduced()
+    tc = TrainConfig(steps=1, checkpoint_dir=str(tmp_path / "a"))
+    shape = ShapeConfig("t", 8, 2, "train")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(cfg, shape, tc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "minitron-8b", "--reduced", "--steps",
+                           "1", "--checkpoint-dir", str(tmp_path / "b")])
+    assert run_training(cfg, shape, tc, device="cpu")["steps"] == 1
 
 
 def test_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
