@@ -107,6 +107,33 @@ Phases (any failure exits non-zero; none is caught and passed over):
    fresh resumed run to step 6, steps 3-5 within 2e-3; the checkpoint
    save and restore times; a step there with remat and without.  None
    of our kernels runs in training (their counts stay 0).
+10. The reference's "opt" variant (``repro_torch.launch.dryrun.
+    apply_variant``) at full width, after phase 9, each part on a freed
+    card and nothing written to disk: (a) ``granite-moe-3b-a800m``
+    under ``apply_variant(.., "opt", SHAPES["train_4k"])``
+    (``attn_q_chunk=2048``, ``attn_shard_heads``, ``attn_scores_bf16``,
+    ``moe_dp_sharding``): first each layer's attention (two query blocks
+    of 2,048) against the plain config's (one block of 4,096) on the
+    hidden states of a plain ``forward_logits`` of one 4,096-token
+    sequence, within phase 6's bf16 tolerance; then trained as in phase 9:
+    losses finite, step 0's within 2e-2 relative of phase 9's, step 0's
+    batch lower after the steps; step times, peak, a profiled step, and
+    the model FLOP share of both steps (``launch/roofline.py``); (b)
+    ``rwkv6-3b``: the prefill of one 256-token prompt with
+    ``rwkv_chunk=64`` against the time-step loop, last logits within
+    phase 7's bf16 tolerance and the RWKV states within 2^-4 of the
+    largest, then
+    the "opt" config serving 8 requests of 257 tokens as phase 7 serves
+    (``minp_mask`` once per decode step; its launches join the
+    ``kernels`` line's); (c) ``minitron-8b`` at B = 1 against a cache of
+    262,144 positions of random bf16 K/V (``long_500k`` cut from
+    524,288), 8 decode steps with ``sp_decode`` and the same 8 without:
+    logits within phase 6's bf16 tolerance, each step's K/V row written
+    at its position (changed there, the fill on both sides, the two
+    runs' rows within that tolerance), a step of each profiled; (d)
+    ``pipeline_forward`` over 4 stages of [4096, 4096] bf16 weights on
+    the card, 8 microbatches of [512, 4096], bit-equal to the stages
+    run in order.  (a), (c) and (d) launch none of our kernels.
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -225,6 +252,28 @@ LOSS0_TOL, LOSS0_ABOVE_LN_V = 1.5, 2.0
 # and two compressed DDP steps from the same parameters, loss and
 # grad_norm within 1e-5 relative (float32 sums in other orders)
 CARD_CPU_RTOL = 1e-5
+# phase 10: the reference's "opt" variant (launch/dryrun.py
+# apply_variant) at full width.  (a) granite under apply_variant(..,
+# "opt", SHAPES["train_4k"]): each layer's attention against the plain
+# config's on the hidden states of one sequence of TRAIN_SEQ tokens; then
+# trained as in phase 9, step 0's loss within 2e-2 relative of phase 9's
+# (the same weights and batch; scores kept in bf16 up to the softmax,
+# which phase 9 casts to float32 first)
+OPT_LOSS0_RTOL = 2e-2
+# (b) rwkv6-3b: one 256-token prompt prefilled (a multiple of
+# rwkv_chunk=64, so the chunked form runs) with the chunk and without;
+# then ARCH_REQUESTS prompts of 257 tokens served (the engine prefills
+# all but the last token: 256)
+OPT_RWKV_ARCH, OPT_RWKV_PROMPT = "rwkv6-3b", 256
+# (c) minitron-8b decoded at B = 1 against a cache of 262,144 positions
+# of random bf16 K/V (SHAPES["long_500k"] cut from 524,288: there the
+# cache is 68.7 GB beside 15.5 GB of weights), 8 steps with sp_decode
+# and 8 without, at the positions just before the cache's last
+OPT_LONG_ARCH, OPT_LONG_SEQ, OPT_LONG_STEPS = "minitron-8b", 262_144, 8
+# (d) pipeline_forward over 4 stages of [4096, 4096] bf16 weights
+# (minitron's width), tanh(x @ W) as in the reference's test, 8
+# microbatches of [512, 4096]
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS, PIPE_WIDTH = 4, 8, 512, 4096
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -923,18 +972,8 @@ def run_lm_path(torch, report):
                       for blk in eng.cache.values() for t in blk.values())
     prefill_ms, step_ms = [], []
 
-    def timed(fn, into):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            into.append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
-
-    eng.add_request = timed(eng.add_request, prefill_ms)
-    eng.step = timed(eng.step, step_ms)
+    eng.add_request = timed_calls(torch, eng.add_request, prefill_ms)
+    eng.step = timed_calls(torch, eng.step, step_ms)
     K.reset_launch_counts()
     t0 = time.perf_counter()
     done = eng.run(reqs)
@@ -1027,6 +1066,19 @@ def run_lm_path(torch, report):
     return counts, logits, tau
 
 
+def timed_calls(torch, fn, into: list):
+    """``fn`` wrapped to append each call's wall-clock ms, between two
+    synchronises, to ``into``."""
+    def run(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t) * 1e3)
+        return out
+    return run
+
+
 def profile_decode_step(torch, fn, reps: int = 5, ops: int = 0) -> dict:
     """One step (a decode step, or a train step) under
     ``torch.profiler``: the kernels' summed device time against the
@@ -1046,8 +1098,9 @@ def profile_decode_step(torch, fn, reps: int = 5, ops: int = 0) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
+        t_trace = time.perf_counter()
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     expect(device_ms > 0, "the profiler saw no device time")
     wall = float(np.median(walls))
@@ -1057,11 +1110,12 @@ def profile_decode_step(torch, fn, reps: int = 5, ops: int = 0) -> dict:
            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                    for e in top]}
     if ops:
-        cpu = sorted((e for e in prof.key_averages()
-                      if e.device_type.name == "CPU"),
+        cpu = sorted((e for e in averages if e.device_type.name == "CPU"),
                      key=lambda e: -e.self_device_time_total)[:ops]
         out["top_ops"] = [[e.key, e.self_device_time_total / 1e3, e.count]
                           for e in cpu]
+    # the host seconds the trace took to collect and sum, after the step
+    out["trace_s"] = time.perf_counter() - t_trace
     return out
 
 
@@ -1149,18 +1203,8 @@ def serve_arch(torch, arch: str, layers: int | None, n_expected: int,
                       max_len=ARCH_MAX_LEN, sc=sc)
     prefill_ms, step_ms = [], []
 
-    def timed(fn, into):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            into.append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
-
-    eng.add_request = timed(eng.add_request, prefill_ms)
-    eng.step = timed(eng.step, step_ms)
+    eng.add_request = timed_calls(torch, eng.add_request, prefill_ms)
+    eng.step = timed_calls(torch, eng.step, step_ms)
     K.reset_launch_counts()
     t0 = time.perf_counter()
     done = eng.run(reqs)
@@ -1573,6 +1617,382 @@ def run_training_path(torch, report) -> dict:
     rep["phase_s"] = time.perf_counter() - t_phase
     report["train"] = rep
     return launches
+
+
+# --------------------------------------------------------------------- #
+# Phase 10: the reference's "opt" variant at full width
+# --------------------------------------------------------------------- #
+
+def model_flop_share(cfg, step_ms: float) -> dict:
+    """Model FLOPs of a train step (6 N_active D, ``launch/roofline.py``)
+    over the step's seconds, against the card's dense bf16 peak."""
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.dryrun import abstract_params, active_params
+
+    active = active_params(cfg, abstract_params(cfg))
+    flops = R.model_flops_train(active, TRAIN_BATCH * TRAIN_SEQ)
+    return {"active_params": active, "model_flops": flops,
+            "model_tflop_per_s": flops / (step_ms / 1e3) / 1e12,
+            "share_of_peak": flops / (step_ms / 1e3) / R.PEAK_FLOPS,
+            "peak_tflop_per_s": R.PEAK_FLOPS / 1e12, "card": card_line()}
+
+
+def opt_vs_plain_attention(torch, base, cfg) -> dict:
+    """Each layer's attention under the "opt" config ``cfg`` against the
+    plain ``base``'s on the same input: the hidden states of a plain
+    ``forward_logits`` of one ``TRAIN_SEQ``-token sequence through phase
+    9's weights, every layer within phase 6's bf16 tolerance of its
+    largest output.  The whole model is not compared: a token routed to
+    another top-8 of 40 experts by a rounding apart (as phase 7 found)
+    changes every later position it reaches."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as M
+
+    attention, errs = L.attention, []
+
+    def both(c, p, x, q_pos, *args, **kw):
+        y = attention(c, p, x, q_pos, *args, **kw)
+        d = (attention(cfg, p, x, q_pos, *args, **kw).float()
+             - y.float()).abs()
+        errs.append((float(d.max()), float(d.mean()),
+                     float(y.float().abs().max())))
+        return y
+
+    params = M.init_params(base, torch.Generator("cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, base.vocab, (1, TRAIN_SEQ))).cuda()
+    L.attention = both
+    try:
+        with torch.no_grad():
+            M.forward_logits(base, params, {"tokens": toks})
+    finally:
+        L.attention = attention
+    expect(len(errs) == base.num_layers,
+           f"{len(errs)} attention layers of {base.num_layers} compared")
+    for i, (err, mean, scale) in enumerate(errs):
+        expect(err <= DECODE_TOL * scale and mean <= DECODE_MEAN_TOL * scale,
+               f"{TRAIN_ARCH} layer {i} attention, opt vs plain: max "
+               f"{err}, mean {mean}, largest {scale}")
+    del params
+    free(torch)
+    return {"dtype": "bfloat16", "positions": TRAIN_SEQ,
+            "query_blocks": -(-TRAIN_SEQ // cfg.attn_q_chunk),
+            "layers": len(errs),
+            "max_rel_err": max(e / s for e, _, s in errs),
+            "mean_rel_err": max(m / s for _, m, s in errs)}
+
+
+def opt_training(torch, plain: dict) -> dict:
+    """(a) granite at full width and depth under the "opt" variant: its
+    attention against the plain config's, then trained as phase 9 trains
+    it (``plain``: phase 9's report)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import apply_variant
+    from repro_torch.train import optimizer as O
+
+    base = get_config(TRAIN_ARCH)
+    cfg = apply_variant(base, "opt", SHAPES["train_4k"])
+    expect(cfg.attn_q_chunk == 2048 and cfg.attn_shard_heads and
+           cfg.attn_scores_bf16 and cfg.moe_dp_sharding,
+           f"the opt variant of {TRAIN_ARCH}: {cfg}")
+    expect(TRAIN_SEQ > cfg.attn_q_chunk,
+           f"{TRAIN_SEQ} tokens run as one query block")
+    attention = opt_vs_plain_attention(torch, base, cfg)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    oc = O.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, opt_dtype=cfg.opt_dtype)
+    rep = train_full_depth(torch, cfg, shape, oc)
+    losses, loss0 = rep["losses"], plain["losses"][0]
+    expect(all(np.isfinite(losses)), f"opt training losses {losses}")
+    expect(abs(losses[0] - loss0) <= OPT_LOSS0_RTOL * abs(loss0),
+           f"opt step-0 loss {losses[0]} vs phase 9's {loss0}")
+    expect(rep["step0_batch_loss_after"] < losses[0],
+           f"opt: step 0's batch {losses[0]} before, "
+           f"{rep['step0_batch_loss_after']} after {TRAIN_STEPS} steps")
+    rep.update({
+        "knobs": {k: getattr(cfg, k) for k in (
+            "attn_q_chunk", "attn_shard_heads", "attn_scores_bf16",
+            "moe_dp_sharding")},
+        "reduced": {"global_batch": [256, TRAIN_BATCH]},
+        "attention_vs_plain": attention,
+        "loss0_plain": loss0,
+        "step_ms_median_1_5_plain": plain["step_ms_median_1_5"],
+        "peak_gb_plain": plain["peak_gb"],
+        "mfu": model_flop_share(cfg, rep["step_ms_median_1_5"]),
+        "mfu_plain": model_flop_share(base, plain["step_ms_median_1_5"])})
+    return rep
+
+
+def timed_ms(torch, fn, reps: int) -> tuple[float, list, object]:
+    """``fn`` once to warm up, then ``reps`` times, each synchronised:
+    (median ms, the times, the last result)."""
+    out = fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(walls)), walls, out
+
+
+def opt_rwkv(torch, dev: str = "cuda") -> tuple[dict, dict]:
+    """(b) rwkv6-3b at full width: the prefill of one 256-token prompt
+    with ``rwkv_chunk=64`` (the chunked form) against ``None`` (the
+    time-step loop), within phase 7's bf16 tolerance; then the "opt"
+    config serving as phase 7 serves.  Returns (report, the engine run's
+    launch counts)."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import apply_variant
+    from repro_torch.models import lm as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    base = get_config(OPT_RWKV_ARCH)
+    cfg = apply_variant(base, "opt", SHAPES["prefill_32k"])
+    expect(cfg.rwkv_chunk == 64 and OPT_RWKV_PROMPT % 64 == 0,
+           f"rwkv_chunk {cfg.rwkv_chunk}")
+    scan = dataclasses.replace(cfg, rwkv_chunk=None)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(base, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, base.vocab, (1, OPT_RWKV_PROMPT))).to(dev)
+    rep: dict = {"arch": OPT_RWKV_ARCH, "dtype": "bfloat16",
+                 "prompt": OPT_RWKV_PROMPT, "rwkv_chunk": cfg.rwkv_chunk}
+    with torch.no_grad():
+        out = {}
+        for name, c, reps in (("chunked", cfg, 5), ("scan", scan, 2)):
+            ms, walls, out[name] = timed_ms(
+                torch, lambda c=c: M.prefill(c, params, {"tokens": toks}),
+                reps)
+            rep[f"prefill_ms_{name}"], rep[f"prefill_ms_{name}_all"] = \
+                ms, walls
+    (lc, cc), (ls, cs) = out["chunked"], out["scan"]
+    rep["chunked_vs_scan"] = decode_vs_forward(
+        torch, lc[:, 0], ls[:, 0], base.vocab, "rwkv prefill, chunked vs "
+        "the time-step loop")
+    st_c, st_s = cc["block0"]["state"].float(), cs["block0"]["state"].float()
+    rep["state_max_rel_err"] = float((st_c - st_s).abs().max()
+                                     / st_s.abs().max())
+    expect(rep["state_max_rel_err"] <= DECODE_TOL,
+           f"rwkv prefill, chunked vs the time-step loop: states "
+           f"{rep['state_max_rel_err']} of the largest apart")
+    del out, lc, cc, ls, cs, st_c, st_s
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, base.vocab,
+                                               OPT_RWKV_PROMPT + 1)
+                    .astype(np.int32), max_new_tokens=ARCH_NEW)
+            for i in range(ARCH_REQUESTS)]
+    eng = ServeEngine(cfg, params, num_slots=ARCH_SLOTS,
+                      max_len=ARCH_MAX_LEN, device=dev)
+    prefill_ms, step_ms = [], []
+
+    eng.add_request = timed_calls(torch, eng.add_request, prefill_ms)
+    eng.step = timed_calls(torch, eng.step, step_ms)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        done = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    expect(sorted(r.rid for r in done) == list(range(ARCH_REQUESTS)) and
+           all(len(r.out_tokens) == ARCH_NEW and
+               all(0 <= t < base.vocab for t in r.out_tokens)
+               for r in done), "opt rwkv serving: requests unfinished")
+    expect(counts["minp_mask"] == len(step_ms) > 0,
+           f"opt rwkv serving: minp_mask launched {counts['minp_mask']} "
+           f"times in {len(step_ms)} decode steps")
+    tokens = sum(len(r.out_tokens) for r in done)
+    rep.update({
+        "serve": {"requests": ARCH_REQUESTS,
+                  "prompt": OPT_RWKV_PROMPT + 1, "new_tokens": ARCH_NEW,
+                  "slots": ARCH_SLOTS, "engine_s": run_s, "tokens": tokens,
+                  "tok_per_s": tokens / run_s,
+                  "prefill_ms_median": float(np.median(prefill_ms)),
+                  "decode_step_ms_median": float(np.median(step_ms)),
+                  "decode_steps": len(step_ms), "launches": counts},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del eng, params
+    free(torch)
+    return rep, counts
+
+
+def opt_long_decode(torch, dev: str = "cuda") -> dict:
+    """(c) minitron-8b at B = 1 against a cache of ``OPT_LONG_SEQ``
+    random bf16 positions: ``OPT_LONG_STEPS`` decode steps with
+    ``sp_decode`` (the "opt" config of ``long_500k``) and the same steps
+    without, on one cache (each run rewrites the rows it reads before it
+    reads them).  The logits agree within phase 6's bf16 tolerance; each
+    run's K/V rows land at the positions decoded (changed there, equal
+    to the random fill on both sides) and agree between the runs."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import apply_variant
+    from repro_torch.models import lm as M
+
+    base = get_config(OPT_LONG_ARCH)
+    sp = apply_variant(base, "opt", SHAPES["long_500k"])
+    expect(sp.sp_decode, "the long_500k variant sets sp_decode")
+    plain = dataclasses.replace(sp, sp_decode=False)
+    s, n = OPT_LONG_SEQ, OPT_LONG_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(base, torch.Generator(dev).manual_seed(0), dev)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in param_leaves(params))
+    cache = M.init_cache(base, 1, s, dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    kv = [cache[b][name] for b in sorted(cache) for name in ("k", "v")]
+    for leaf in kv:
+        for i in range(leaf.shape[0]):
+            leaf[i].normal_(generator=gen)
+    cache_bytes = sum(t.numel() * t.element_size() for t in kv)
+    p0 = s - n - 1                   # rows p0-1 and s-1 stay the fill
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, base.vocab, (1, n))).to(dev)
+
+    def rows() -> list:
+        return [leaf[:, :, p0 - 1:].clone() for leaf in kv]
+
+    fill = rows()
+    runs: dict = {}
+    with torch.no_grad():
+        for name, c in (("sp", sp), ("plain", plain)):
+            M.decode_step(c, params, cache, toks[:, :1], p0)   # warm-up
+            logits, walls = [], []
+            for t in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, _ = M.decode_step(c, params, cache, toks[:, t:t + 1],
+                                       p0 + t)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                logits.append(out[:, 0])
+            # the last step again, profiled: it rewrites its row with the
+            # same bits
+            busy = profile_decode_step(
+                torch, lambda c=c: M.decode_step(
+                    c, params, cache, toks[:, -1:], p0 + n - 1),
+                reps=2, ops=8)
+            runs[name] = {"logits": logits, "ms": walls, "rows": rows(),
+                          "device_busy": busy}
+    for name, run in runs.items():
+        for f, r in zip(fill, run["rows"]):
+            expect(torch.equal(r[:, :, 0], f[:, :, 0]) and
+                   torch.equal(r[:, :, -1], f[:, :, -1]),
+                   f"long decode ({name}): a row outside the decoded "
+                   f"positions changed")
+            expect(all(not torch.equal(r[:, :, 1 + t], f[:, :, 1 + t])
+                       for t in range(n)),
+                   f"long decode ({name}): a decoded row kept the fill")
+    row_err = max(float((a[:, :, 1:-1].float() - b[:, :, 1:-1].float())
+                        .abs().max() / b[:, :, 1:-1].float().abs().max())
+                  for a, b in zip(runs["sp"]["rows"], runs["plain"]["rows"]))
+    expect(row_err <= DECODE_TOL,
+           f"long decode: K/V rows, sp vs plain, {row_err} of the largest")
+    steps = [decode_vs_forward(torch, a, b, base.vocab,
+                               f"long decode at {p0 + t}, sp vs plain")
+             for t, (a, b) in enumerate(zip(runs["sp"]["logits"],
+                                            runs["plain"]["logits"]))]
+    bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES_S * 1e3
+    rep = {"arch": OPT_LONG_ARCH, "dtype": "bfloat16", "batch": 1,
+           "cache_positions": s, "positions": [p0, p0 + n - 1],
+           "reduced": {"seq_len": [SHAPES["long_500k"].seq_len, s]},
+           "cache_gb": cache_bytes / 1e9, "param_gb": param_bytes / 1e9,
+           "step_ms_sp": runs["sp"]["ms"],
+           "step_ms_plain": runs["plain"]["ms"],
+           "step_ms_sp_median": float(np.median(runs["sp"]["ms"])),
+           "step_ms_plain_median": float(np.median(runs["plain"]["ms"])),
+           "bound_ms": bound_ms, "kv_rows_max_rel_diff": row_err,
+           "device_busy_sp": runs["sp"]["device_busy"],
+           "device_busy_plain": runs["plain"]["device_busy"],
+           "logits_max_abs_err": max(x["max_abs_err"] for x in steps),
+           "logits_mean_abs_err": max(x["mean_abs_err"] for x in steps),
+           "same_argmax": [x["same_argmax"][0] for x in steps],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, cache, kv, runs, fill
+    free(torch)
+    return rep
+
+
+def opt_pipeline(torch, dev: str = "cuda") -> dict:
+    """(d) ``pipeline_forward`` over ``PIPE_STAGES`` stages on the card,
+    bit-equal to each microbatch run through the stages in order."""
+    from repro_torch.dist.pipeline import pipeline_forward
+
+    gen = torch.Generator(dev).manual_seed(6)
+    ws = torch.randn(PIPE_STAGES, PIPE_WIDTH, PIPE_WIDTH, generator=gen,
+                     device=dev, dtype=torch.bfloat16) * PIPE_WIDTH ** -0.5
+    xs = torch.randn(PIPE_MICRO, PIPE_ROWS, PIPE_WIDTH, generator=gen,
+                     device=dev, dtype=torch.bfloat16)
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+
+    def in_order():
+        outs = []
+        for m in range(PIPE_MICRO):
+            x = xs[m]
+            for w in ws:
+                x = stage(w, x)
+            outs.append(x)
+        return torch.stack(outs)
+
+    devices = [torch.device(dev)] * PIPE_STAGES
+    with torch.no_grad():
+        ms, _, got = timed_ms(
+            torch, lambda: pipeline_forward(stage, devices, ws, xs), 5)
+        ms_seq, _, want = timed_ms(torch, in_order, 5)
+    expect(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+           "pipeline_forward vs the stages run in order")
+    return {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+            "microbatch": [PIPE_ROWS, PIPE_WIDTH], "dtype": "bfloat16",
+            "ticks": PIPE_MICRO + PIPE_STAGES - 1, "bit_equal": True,
+            "ms": ms, "ms_in_order": ms_seq}
+
+
+def run_opt_variant(torch, report, dev: str = "cuda") -> dict:
+    """Phase 10: (a) training, (b) rwkv prefill and serving, (c)
+    long-context decode, (d) ``pipeline_forward``, each on a freed card.
+    Returns the launch counts of our kernels in (b)'s serving; (a), (c)
+    and (d) launch none (checked)."""
+    import repro_torch.kernels as K
+
+    def none_launched(what: str) -> None:
+        counts = K.launch_counts()
+        expect(not any(counts.values()),
+               f"{what} launched kernels of ours: {counts}")
+
+    t_phase = time.perf_counter()
+    rep: dict = {}
+    K.reset_launch_counts()
+    rep["train"] = opt_training(torch, report["train"])
+    none_launched("the opt training")
+    free(torch)
+    rep["train"]["part_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: (a) opt training ok {json.dumps(rep['train'])}")
+    t = time.perf_counter()
+    rep["rwkv"], counts = opt_rwkv(torch, dev)
+    rep["rwkv"]["part_s"] = time.perf_counter() - t
+    log(f"phase 10: (b) rwkv prefill and serving ok "
+        f"{json.dumps(rep['rwkv'])}")
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    rep["long_decode"] = opt_long_decode(torch, dev)
+    rep["long_decode"]["part_s"] = time.perf_counter() - t
+    log(f"phase 10: (c) long-context decode ok "
+        f"{json.dumps(rep['long_decode'])}")
+    t = time.perf_counter()
+    rep["pipeline"] = opt_pipeline(torch, dev)
+    rep["pipeline"]["part_s"] = time.perf_counter() - t
+    log(f"phase 10: (d) pipeline_forward ok {json.dumps(rep['pipeline'])}")
+    none_launched("the long-context decode or the pipeline")
+    rep["launches"] = counts
+    rep["phase_s"] = time.perf_counter() - t_phase
+    report["opt"] = rep
+    return counts
 
 
 # --------------------------------------------------------------------- #
@@ -2058,6 +2478,11 @@ def main() -> int:
     expect(not any(tlaunches.values()),
            f"training launched kernels of ours: {tlaunches}")
     log(f"phase 9: training ok {json.dumps(report['train'])}")
+    free(torch)
+    ocounts = run_opt_variant(torch, report)
+    for row in rows:
+        row["launches"] += ocounts[row["name"]]
+    log(f"phase 10: opt variant ok in {report['opt']['phase_s']:.1f} s")
 
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)

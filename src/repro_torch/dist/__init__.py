@@ -1,4 +1,5 @@
-"""Gradient compression and the compressed data-parallel step, on one
-card: the gradient all-reduce of the reference's mesh is the identity
-here.  ``pipeline_forward`` and ``sp_decode`` are not ported yet
-(``ROADMAP.md`` Queue 1)."""
+"""Distribution on one card: gradient compression and the compressed
+data-parallel step (the gradient all-reduce of the reference's mesh is
+the identity here), the flash decode of the long-context cell
+(``sp_decode``) and the GPipe schedule (``pipeline``) over a list of
+devices."""

@@ -19,10 +19,15 @@ float32 cos/sin promote a bf16 input before the cast back.  A Python
 float that meets a bf16 tensor is first rounded to bf16, as JAX rounds a
 weakly typed scalar (:func:`weak_scalar`).  Every
 ``*_init`` draws from an explicit ``torch.Generator`` with the
-reference's scales.  Not ported yet (``ROADMAP.md`` Queue 1, "the
-modules still missing"): the mesh and perf knobs ``attn_shard_heads``,
-``sp_decode``, ``attn_q_chunk`` and ``moe_dp_sharding``; they raise
-``NotImplementedError``.
+reference's scales (on the meta device, shapes and dtypes only).
+
+The reference's perf knobs (the "opt" variant of its dry-run) compute
+as there: ``attn_q_chunk`` runs attention over query blocks, each
+reading keys up to its causal (and window) horizon;
+``sp_decode`` decodes through
+:func:`repro_torch.dist.sp_decode.sp_flash_decode`.  Their sharding
+constraints, and all of ``attn_shard_heads`` and ``moe_dp_sharding``,
+are the identity on one card.
 """
 
 from __future__ import annotations
@@ -40,12 +45,6 @@ Params = dict[str, Any]
 
 NEG_INF = -2.0e38
 VOCAB_ALIGN = 128
-_MISSING = ("not ported yet: ROADMAP.md Queue 1, the modules still "
-            "missing")
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is {_MISSING}")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -67,6 +66,9 @@ def _normal(shape, scale: float, cfg: ModelConfig, gen: torch.Generator,
     named), times ``scale`` in that dtype (as the reference scales its
     draws).  ``lead`` prefixes the shape, so a period-stacked leaf is
     drawn in one piece."""
+    if device.type == "meta":
+        return torch.empty(lead + tuple(shape), dtype=dtype or pdtype(cfg),
+                           device=device)
     x = torch.randn(lead + tuple(shape), generator=gen,
                     dtype=dtype or pdtype(cfg), device=gen.device)
     return x.mul_(scale).to(device)
@@ -160,12 +162,6 @@ def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
-def _check_knobs(cfg: ModelConfig) -> None:
-    for knob in ("attn_shard_heads", "sp_decode", "attn_q_chunk"):
-        if getattr(cfg, knob):
-            raise not_ported(f"ModelConfig.{knob}")
-
-
 def project_kv(cfg: ModelConfig, p: Params, x: torch.Tensor,
                positions: torch.Tensor | None, rope_keys: bool = True
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -194,8 +190,11 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
     g = h // kv
     kh = k_flat.reshape(b, -1, kv, dh)
     vh = v_flat.reshape(b, -1, kv, dh)
-    qg = q.reshape(b, sq, kv, g, dh)
-    scores = scale_scores(torch.einsum("bskgh,btkh->bkgst", qg, kh), dh)
+    # ``attn_shard_heads`` only constrains the reference's scores to its
+    # mesh: the identity on one card
+    scores = torch.einsum("bskgh,btkh->bkgst",
+                          q.reshape(b, sq, kv, g, dh), kh)
+    scores = scale_scores(scores, dh)
     if not (cfg.attn_scores_bf16 and cfg.attn_softcap is None):
         scores = scores.float()
     scores = _softcap(scores, cfg.attn_softcap)
@@ -215,8 +214,10 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     are given, they are flat [B, Sk, KV*dh] projections already computed
     (:func:`project_kv` of ``x``, or an encoder's cross K/V); otherwise
     self-attention projects them from x.  ``cross=True`` => no mask, no
-    RoPE (cross-attention, and the bidirectional encoder)."""
-    _check_knobs(cfg)
+    RoPE (cross-attention, and the bidirectional encoder).  With
+    ``attn_q_chunk`` (and S > chunk, not cross) the queries go in blocks
+    ``[i, hi)``, each against the keys ``[k_lo, hi)`` of its causal and
+    window horizon."""
     h, dh = cfg.n_heads, cfg.d_head
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
@@ -226,9 +227,22 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q = rope(q, q_pos, cfg.rope_theta)
     if k is None:
         k, v = project_kv(cfg, p, x, q_pos, rope_keys=not cross)
-    mask = None if cross else _attn_mask(q_pos, q_pos, window)[None, None,
-                                                               None]
-    out = _attend(cfg, q, k, v, mask)
+    s_q, chunk = q.shape[1], cfg.attn_q_chunk
+    if chunk and s_q > chunk and not cross:
+        outs = []
+        for i in range(0, s_q, chunk):
+            hi = min(i + chunk, s_q)
+            # the block's first query is i: it needs keys > i - window
+            k_lo = 0 if window is None else max(0, i - window + 1)
+            mask = _attn_mask(q_pos[i:hi], q_pos[k_lo:hi],
+                              window)[None, None, None]
+            outs.append(_attend(cfg, q[:, i:hi], k[:, k_lo:hi],
+                                v[:, k_lo:hi], mask))
+        out = torch.cat(outs, dim=1)
+    else:
+        mask = None if cross else _attn_mask(q_pos, q_pos,
+                                             window)[None, None, None]
+        out = _attend(cfg, q, k, v, mask)
     return out @ p["wo"].to(x.dtype)
 
 
@@ -258,10 +272,17 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     Unlike the reference, which returns updated copies, this writes the
     new K/V row (and ``kpos``) into the given tensors in place.  The slot
-    is clamped into the cache as ``dynamic_update_slice`` clamps it."""
-    _check_knobs(cfg)
+    is clamped into the cache as ``dynamic_update_slice`` clamps it.
+    With ``sp_decode`` a full-attention block decodes through
+    :func:`repro_torch.dist.sp_decode.sp_flash_decode`."""
     s_max = cache_k.shape[1]
     q, k1, v1 = project_qkv_decode(cfg, p, x, pos)
+    if cfg.sp_decode and window is None:
+        from repro_torch.dist.sp_decode import sp_flash_decode
+
+        out, cache_k, cache_v = sp_flash_decode(cfg, q, cache_k, cache_v,
+                                                k1, v1, pos)
+        return out @ p["wo"].to(x.dtype), cache_k, cache_v, kpos
     slot = pos % s_max if window is not None else min(max(pos, 0),
                                                       s_max - 1)
     cache_k[:, slot] = k1[:, 0]
@@ -360,9 +381,9 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """Top-k routing with a fixed expert capacity (GShard-style, token
     dropping), with the reference's static shapes: every expert runs
     over its ``cap`` slots, empty ones zero.  A token whose slot is past
-    ``cap`` gets nothing from that expert."""
-    if cfg.moe_dp_sharding:
-        raise not_ported("ModelConfig.moe_dp_sharding")
+    ``cap`` gets nothing from that expert.  ``moe_dp_sharding`` only
+    constrains the reference's dispatch buffer to its mesh: the identity
+    on one card."""
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     if capacity_factor is None:
         capacity_factor = cfg.moe.capacity_factor

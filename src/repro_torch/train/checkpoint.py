@@ -10,8 +10,10 @@ on-disk format, so either package reads the other's checkpoints:
   * a checkpoint is written to ``step_XXXXXXXX.tmp/`` and published by
     an atomic rename, so a torn write is never listed and restore falls
     back to the previous one;
-  * the writer runs on a background thread (training continues);
-    ``wait()`` joins it before the next save or exit.
+  * the writer runs on a background thread (training continues) on a
+    private host copy of every leaf, taken before the thread starts, so
+    the caller may update its tensors in place meanwhile; ``wait()``
+    joins it before the next save or exit.
 
 A bfloat16 leaf goes to disk as its 16-bit patterns under the header
 NumPy writes for the reference's bfloat16 (``descr`` ``<V2``, a 2-byte
@@ -41,9 +43,14 @@ BF16_DESCR = "<V2"
 
 
 def to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` and the dtype name its manifest records
-    (a bfloat16 tensor as its int16 bit patterns)."""
-    t = t.detach().cpu().contiguous()
+    """A private host copy of ``t`` (``.cpu()`` of a card tensor already
+    is one; a CPU tensor is cloned) and the dtype name its manifest
+    records (a bfloat16 tensor as its int16 bit patterns)."""
+    t = t.detach()
+    if t.device.type == "cpu":
+        t = t.clone(memory_format=torch.contiguous_format)
+    else:
+        t = t.cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy(), "bfloat16"
     arr = t.numpy()

@@ -1,7 +1,9 @@
-"""Gradient compression and the compressed data-parallel step: the
-port against the reference's, the step on a one-device mesh with Auto
-axes (``jax.sharding.Mesh(devices[:1], ("data",))``), where the
-gradient all-reduce is the identity as it is on one card.
+"""Gradient compression, the compressed data-parallel step and the
+GPipe ``pipeline_forward``: the port against the reference's, the step
+on a one-device mesh with Auto axes (``jax.sharding.Mesh(devices[:1],
+("data",))``), where the gradient all-reduce is the identity as it is
+on one card; the pipeline against the reference's on a (4, 2) mesh of
+host devices, in a subprocess as ``tests/test_dist.py`` runs it.
 
 Tolerances, and why: ``quantize``/``dequantize`` bit for bit (one
 float32 division, a round half to even, a clip).  Three steps from the
@@ -13,8 +15,17 @@ a quantum (``scale / 2``) of zero; where the port's and the reference's
 inputs to one rounding straddle a half, it flips by one quantum, so
 every element is held within one quantum, ``2.01 * max|err|`` of its
 leaf, and after the first step (identical parameters) at most 1e-3 of
-the elements differ by more than a tenth of one.
+the elements differ by more than a tenth of one.  ``pipeline_forward``
+bit for bit against its stages run in order, one microbatch at a time,
+and within 1e-6 of the reference's (float32 ``tanh(x @ W)`` stages of
+16-term sums, in another framework).
 """
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +43,11 @@ from repro.train import optimizer as JO
 from repro_torch import convert
 from repro_torch.dist import compression as C
 from repro_torch.dist import ddp as D
+from repro_torch.dist.pipeline import pipeline_forward
 from repro_torch.train import optimizer as O
 
 LR = 1e-3
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_quantize_bit_for_bit_over_many_scales():
@@ -126,3 +139,62 @@ def test_init_error_state_is_float32_zeros_like_params():
     for (k, p), (k2, e) in zip(flat_np(tp).items(), flat_np(err).items()):
         assert k == k2 and e.shape == p.shape and e.dtype == np.float32
         assert not e.any()
+
+
+def _stage(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x @ w)
+
+
+def _pipeline_inputs(stages: int, micro: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    ws = (rng.normal(size=(stages, 16, 16)) * .3).astype(np.float32)
+    xs = rng.normal(size=(micro, 5, 16)).astype(np.float32)
+    return ws, xs
+
+
+@pytest.mark.parametrize("stages,micro", [(4, 6), (4, 8), (1, 3), (3, 1),
+                                          (2, 2)])
+def test_pipeline_forward_equals_the_stages_run_in_order(stages, micro):
+    """Fill and drain with more, as many and fewer microbatches than
+    stages; one stage; every stage on the CPU."""
+    ws, xs = map(torch.from_numpy, _pipeline_inputs(stages, micro))
+    got = pipeline_forward(_stage, ["cpu"] * stages, ws, xs)
+    for m in range(micro):
+        x = xs[m]
+        for s in range(stages):
+            x = _stage(ws[s], x)
+        assert torch.equal(got[m], x), m
+
+
+def test_pipeline_forward_equals_the_reference_subprocess(tmp_path):
+    """The reference's pipeline over the "pod" axis of a (4, 2) mesh of
+    8 host devices, as ``tests/test_dist.py`` runs it."""
+    ws, xs = _pipeline_inputs(4, 6)
+    np.save(tmp_path / "ws.npy", ws)
+    np.save(tmp_path / "xs.npy", xs)
+    code = textwrap.dedent(f"""
+        import jax, jax.numpy as jnp, numpy as np
+        from repro.dist.pipeline import pipeline_forward
+        mesh = jax.make_mesh((4, 2), ("pod", "model"))
+        ws = jnp.asarray(np.load({str(tmp_path / "ws.npy")!r}))
+        xs = jnp.asarray(np.load({str(tmp_path / "xs.npy")!r}))
+        got = pipeline_forward(lambda W, x: jnp.tanh(x @ W), mesh, "pod",
+                               ws, xs)
+        np.save({str(tmp_path / "want.npy")!r}, np.asarray(got))
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = np.load(tmp_path / "want.npy")
+    got = pipeline_forward(_stage, ["cpu"] * 4, torch.from_numpy(ws),
+                           torch.from_numpy(xs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_pipeline_forward_rejects_a_stage_count_mismatch():
+    ws, xs = map(torch.from_numpy, _pipeline_inputs(3, 2))
+    with pytest.raises(ValueError, match="3 stages vs 4 devices"):
+        pipeline_forward(_stage, ["cpu"] * 4, ws, xs)

@@ -353,21 +353,6 @@ def test_bf16_forward_logits_with_unrounded_widths(seed):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2.0 ** -4)
 
 
-@pytest.mark.parametrize("knob,value", [("attn_q_chunk", 8),
-                                        ("attn_shard_heads", True),
-                                        ("sp_decode", True),
-                                        ("moe_dp_sharding", True)])
-def test_perf_knobs_not_ported_yet_raise(knob, value):
-    # minitron has no MoE layer, so only an MoE arch reaches that knob
-    arch = ("granite-moe-3b-a800m" if knob == "moe_dp_sharding"
-            else "minitron-8b")
-    cfg = dataclasses.replace(get_config(arch).reduced(), **{knob: value})
-    params = M.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.forward_logits(cfg, params, {"tokens": torch.zeros((1, 4),
-                                                             dtype=torch.int64)})
-
-
 def test_bf16_forward_of_rwkv_casts_where_jax_casts():
     """bf16 forward of reduced rwkv6-3b: within 4 bf16 ulps of the
     largest logit (0.25 at 8.8; measured on the CPU: 0.234, mean 0.031).
