@@ -88,8 +88,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
    (``x.amax(dim=0)`` over a contiguous ``[rows, words]`` tensor, cold),
    and the predicate and compound timed again on the LUT and on a fresh
    copy of it (``cold_ms_again``, ``cold_ms_fresh_lut``);
-   print the ``kernels`` JSON line and, last, the ok line.
-9. Training, last, on a clean card (the LUT, forest and models of
+   the ``kernels`` JSON line and the ok line are printed after phase 11.
+9. Training, on a clean card (the LUT, forest and models of
    phases 3-7 dropped): reduced ``granite-moe-3b-a800m`` in float32,
    two train steps and two compressed DDP steps on the card and on the
    CPU from one set of parameters, loss and grad_norm within 1e-5
@@ -134,6 +134,28 @@ Phases (any failure exits non-zero; none is caught and passed over):
     ``pipeline_forward`` over 4 stages of [4096, 4096] bf16 weights on
     the card, 8 microbatches of [512, 4096], bit-equal to the stages
     run in order.  (a), (c) and (d) launch none of our kernels.
+11. Per-column representations, last: a TPC-H ``lineitem`` table of
+    2^25 records (about SF 5's 30 M rows), eight integer columns
+    declared 32-bit with the specification's value ranges
+    (:data:`LINEITEM_COLUMNS`, uniform from a seed, each maximum placed
+    once), created twice in one ``PudSession()``: ``fixed`` (8 chunks
+    of 4 bits, an 8.59 GB LUT) and ``representation="auto"``, whose
+    plans must equal :data:`LINEITEM_AUTO_PLANS` (held against the
+    reference's chooser by ``tests/test_torch_planner.py``) and whose
+    LUT must be smaller.  Phase 3's batch shape (scalars in each
+    column's range, and up to 2^32 - 1 past a narrow column's maximum)
+    and TPC-H Q6's WHERE clause as a bitmap and a count run on both,
+    each result equal to its NumPy reference; ``l_shipdate`` is recoded
+    12/3 -> 12/2 (the table then reads ``"evicted"``) and the batch runs
+    again; the adaptive-precision forest (1000 trees, depth 6, 28
+    features, declared 16 bits, thresholds below 400) is loaded
+    ``fixed`` and ``auto`` and predicts 2^16 instances below 2^16,
+    bit-equal to ``assemble_leaves`` over the reference addresses.
+    Each job's WHERE launch and each forest's leaf bits are timed again
+    cold, after the launch counts are read.  A ``phase11`` JSON line on
+    standard output gives plans, LUT sizes, build and rebuild seconds,
+    each job's wall-clock, cold time, bound and distinct rows, the
+    forests and the launches.
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -274,6 +296,25 @@ OPT_LONG_ARCH, OPT_LONG_SEQ, OPT_LONG_STEPS = "minitron-8b", 262_144, 8
 # (minitron's width), tanh(x @ W) as in the reference's test, 8
 # microbatches of [512, 4096]
 PIPE_STAGES, PIPE_MICRO, PIPE_ROWS, PIPE_WIDTH = 4, 8, 512, 4096
+# phase 11: TPC-H lineitem at SF 5 (about 30 M rows; here phase 3's 2^25
+# records), eight integer columns declared 32-bit, with the value ranges
+# of the TPC-H specification (prices in cents, discount and tax in
+# hundredths, ship date in days from 1992-01-01): (name, low, high)
+LINEITEM_RECORDS = 2 ** 25
+LINEITEM_COLUMNS = (
+    ("l_orderkey", 1, 120_000_000), ("l_partkey", 1, 1_000_000),
+    ("l_suppkey", 1, 50_000), ("l_quantity", 1, 50),
+    ("l_extendedprice", 90_000, 10_494_950), ("l_discount", 0, 10),
+    ("l_tax", 0, 8), ("l_shipdate", 0, 2_526))
+# the (n_bits, num_chunks) representation="auto" gives each column, on
+# each arch (tests/test_torch_planner.py holds these against the
+# reference's chooser on a sample of the same ranges)
+LINEITEM_AUTO_PLANS = {
+    "modified": ((27, 7), (20, 5), (16, 4), (6, 1), (24, 6), (4, 1),
+                 (4, 1), (12, 3)),
+    "unmodified": ((27, 9), (20, 6), (16, 4), (6, 1), (24, 8), (4, 1),
+                   (4, 1), (12, 3)),
+}
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -321,6 +362,19 @@ def column_bits(torch, col: np.ndarray, n_bits: int):
     same bits as an int32 tensor on the card)."""
     v = (col >> np.uint64(32 - n_bits)).astype(np.uint32)
     return v, torch.from_numpy(v.view(np.int32)).to(torch.device("cuda"))
+
+
+def lineitem_columns(n: int, seed: int) -> list:
+    """``n`` records of :data:`LINEITEM_COLUMNS`, uniform in each range
+    from ``seed``, each column's maximum placed once (at record 7) so
+    the inferred widths do not depend on the draw."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for _, lo, hi in LINEITEM_COLUMNS:
+        c = rng.integers(lo, hi + 1, n, dtype=np.uint64)
+        c[7] = hi
+        cols.append(c)
+    return cols
 
 
 def card_line() -> str:
@@ -1996,6 +2050,252 @@ def run_opt_variant(torch, report, dev: str = "cuda") -> dict:
 
 
 # --------------------------------------------------------------------- #
+# Phase 11: per-column representations on a TPC-H lineitem table
+# --------------------------------------------------------------------- #
+
+def lineitem_queries(Q):
+    """Phase 3's batch shape over :data:`LINEITEM_COLUMNS` (0 orderkey,
+    1 partkey, 2 suppkey, 3 quantity, 4 extendedprice, 5 discount, 6
+    tax, 7 shipdate), scalars inside each column's range (and past a
+    narrow column's maximum, up to 2^32 - 1), then TPC-H Q6's WHERE
+    clause as a bitmap and as a count."""
+    top = (1 << 32) - 1
+    qa = dict(fi=7, x0=365, x1=1460, fj=3, y0=10, y1=30)
+    qb = dict(fi=5, x0=6, x1=top, fj=6, y0=2, y1=9)
+    q6 = ((Q.Q1(fi=7, x0=729, x1=1095), Q.Q1(fi=5, x0=4, x1=8),
+           Q.Q1(fi=3, x0=0, x1=24)), ("and", "and"))
+    return [
+        ("Q1", Q.Q1(fi=7, x0=365, x1=1460)),
+        ("Q2", Q.Q2(fi=3, x0=10, x1=30, fj=4, y0=1_000_000,
+                    y1=5_000_000)),
+        ("Q3", Q.Q3(**qb)),
+        ("Q4", Q.Q4(fk=4, **qa)),
+        ("Q5", Q.Q5(fl=1, fk=2, fi=0, x0=1_000_000, x1=60_000_000, fj=5,
+                    y0=8, y1=top)),
+        ("Compound(Q1 and Q3)", Q.Compound(
+            (Q.Q1(fi=2, x0=100, x1=40_000), Q.Q3(**qb)), ("and",))),
+        ("Compound(Q1 or Q2 and Q3), count", Q.Compound(
+            (Q.Q1(fi=6, x0=0, x1=2), Q.Q2(**qa), Q.Q3(**qb)),
+            ("or", "and"), count=True)),
+        ("Q6 WHERE", Q.Compound(*q6)),
+        ("Q6 WHERE, count", Q.Compound(*q6, count=True)),
+    ]
+
+
+class KernelCalls:
+    """Within ``with``, record each predicate, compound and leaf-bits
+    launch the executors make (their wrappers still run and count), so
+    a job's launches can be timed again alone afterwards."""
+
+    NAMES = ("fused_predicate_banked", "fused_compound_banked",
+             "gbdt_leafbits_banked")
+
+    def __init__(self):
+        from repro_torch.kernels import fused_session
+
+        self.module = fused_session
+        self.calls: list = []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            def record(*args, _fn=fn, _name=name):
+                self.calls.append((_name, _fn, args))
+                return _fn(*args)
+            setattr(self.module, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+def time_launch(torch, call, flush) -> dict:
+    """A recorded launch timed again alone, cold, its indices already on
+    the card.  A predicate or compound also gets its byte bound: the
+    distinct rows it reads (the pad lanes' constant rows once), the
+    bitmap it writes and its indices."""
+    name, fn, args = call
+    idx = np.asarray(args[2] if name == "gbdt_leafbits_banked" else args[1])
+    didx = torch.from_numpy(idx).to(args[0].device)
+    if name == "gbdt_leafbits_banked":
+        lut, masks, _, *rest = args
+        return {"cold_ms": cold_ms(
+            torch, lambda: fn(lut, masks, didx, *rest), flush)}
+    lut, _, c, *rest = args
+    n_ranges = len(idx) // (4 * c)
+    s, _, w = lut.shape
+    n_rows = read_rows(idx, c, n_ranges)
+    b_ms, b_by = bound(n_rows * s * w * 4 + s * w * 4 + idx.nbytes,
+                       s * w * (n_ranges * (2 * (c - 1) * 5 + 1) + n_ranges))
+    return {"kernel": name, "chunks": c, "ranges": n_ranges,
+            "rows_read": n_rows,
+            "cold_ms": cold_ms(torch, lambda: fn(lut, didx, c, *rest),
+                               flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def lineitem_summary(rep: dict) -> dict:
+    """Phase 11's numbers for standard output: plans, LUT sizes, build
+    and rebuild seconds, each job's wall-clock with its WHERE launch's
+    cold time and bound, the forests and the launches."""
+    def jobs(batch):
+        return {name: [round(r["wallclock_ms"], 3), round(r["cold_ms"], 4),
+                       round(r["bound_ms"], 4), r["rows_read"]]
+                for name, r in batch.items()}
+
+    return {
+        "plans": {m: t["plans"] for m, t in rep["tables"].items()},
+        "lut_gb": {m: t["lut_gb"] for m, t in rep["tables"].items()},
+        "build_s": {m: t["build_s"] for m, t in rep["tables"].items()},
+        "planner_s": rep["planner_s"],
+        "jobs [wall ms, cold ms, bound ms, rows]": {
+            m: jobs(b) for m, b in rep["queries"].items()},
+        "recode": {k: rep["recode"][k] for k in ("column", "plan",
+                                                 "rebuild_s", "lut_gb")},
+        "forests": rep["forests"], "launches": rep["launches"]}
+
+
+def run_lineitem_path(torch, report) -> dict:
+    """Phase 11: one ``lineitem`` table of 2^25 records laid out twice in
+    one session, ``fixed`` and ``representation="auto"``; the batch on
+    both, bit-exact; ``l_shipdate`` recoded and the batch again; then
+    the adaptive-precision forest ``fixed`` and ``auto``.  The launch
+    counts are read before any launch is timed again."""
+    import repro_torch.kernels as K
+    from repro_torch.apps import gbdt as G
+    from repro_torch.apps.predicate import Table
+    from repro_torch.pud import PudSession, planner, queries as Q
+
+    t_phase = time.perf_counter()
+    rep: dict = {"records": LINEITEM_RECORDS,
+                 "columns": [c[0] for c in LINEITEM_COLUMNS]}
+    t0 = time.perf_counter()
+    table = Table(32, lineitem_columns(LINEITEM_RECORDS, seed=0))
+    rep["generate_s"] = time.perf_counter() - t0
+    session = PudSession()
+    # the planner alone, its probe cache cold: the CPU seconds it adds
+    # to a create_table
+    planner._probe_makespan.cache_clear()
+    t0 = time.perf_counter()
+    planner.choose_representation(table, session.arch)
+    rep["planner_s"] = time.perf_counter() - t0
+    # the adaptive-precision forest (benchmarks/adaptive_precision.py's
+    # shape) at phase 4's size
+    rng = np.random.default_rng(32)
+    forest = G.ObliviousForest(
+        rng.integers(0, 28, size=(1000, 6)).astype(np.int32),
+        rng.integers(0, 400, size=(1000, 6)).astype(np.uint64),
+        rng.normal(size=(1000, 64)).astype(np.float32), 16, 28)
+    X = np.random.default_rng(33).integers(0, 1 << 16, (2 ** 16, 28),
+                                           dtype=np.uint64)
+    addrs = np.ascontiguousarray(np.concatenate(
+        [G.reference_leaf_addrs(forest, X[i:i + 8192])
+         for i in range(0, X.shape[0], 8192)]))
+    want_preds = G.assemble_leaves(forest.leaves, addrs)
+    queries = lineitem_queries(Q)
+    wants = [q.reference(table) for _, q in queries]
+
+    K.reset_launch_counts()
+    handles, tables = {}, {}
+    for mode in ("fixed", "auto"):
+        t0 = time.perf_counter()
+        handles[mode] = session.create_table(
+            table, name=f"lineitem_{mode}", representation=mode)
+        torch.cuda.synchronize()
+        ex = session.executor(handles[mode])
+        plans = [(c["n_bits"], c["num_chunks"])
+                 for c in handles[mode].representation["columns"]]
+        tables[mode] = {
+            "build_s": time.perf_counter() - t0, "plans": plans,
+            "lut_shape": list(ex.lut.shape),
+            "lut_gb": ex.lut.numel() * 4 / 1e9,
+            "report_lut_rows": handles[mode].representation["lut_rows"]}
+    rep["tables"] = tables
+    want_plans = [list(p) for p in LINEITEM_AUTO_PLANS[session.arch.value]]
+    expect([list(p) for p in tables["auto"]["plans"]] == want_plans,
+           f"auto plans {tables['auto']['plans']} vs {want_plans}")
+    expect(tables["auto"]["lut_gb"] < tables["fixed"]["lut_gb"],
+           f"auto LUT {tables['auto']['lut_gb']:.2f} GB not below fixed "
+           f"{tables['fixed']['lut_gb']:.2f} GB")
+
+    def run_batch(mode: str) -> dict:
+        out = {}
+        with KernelCalls() as rec:
+            for (name, q), want in zip(queries, wants):
+                job = session.query(handles[mode], q)
+                got = job.result
+                if isinstance(want, np.ndarray):
+                    expect(np.array_equal(got, want),
+                           f"phase 11 {mode} {name} bitmap")
+                    summary = int(got.sum())
+                else:
+                    expect(type(got) is type(want) and got == want,
+                           f"phase 11 {mode} {name}: {got} vs {want}")
+                    summary = got
+                out[name] = {"wallclock_ms": job.wallclock_ns / 1e6,
+                             "result": summary, "calls": rec.take()}
+        return out
+
+    batches = {mode: run_batch(mode) for mode in ("fixed", "auto")}
+    new = session.recode_column(handles["auto"], 7, num_chunks=2)
+    expect((new.n_bits, new.num_chunks) == (12, 2), f"recode gave {new}")
+    expect(handles["auto"].status == "evicted",
+           f"after the recode the table is {handles['auto'].status}")
+    t0 = time.perf_counter()
+    ex = session.executor(handles["auto"])
+    torch.cuda.synchronize()
+    rep["recode"] = {"column": LINEITEM_COLUMNS[7][0], "plan": [12, 2],
+                     "rebuild_s": time.perf_counter() - t0,
+                     "lut_gb": ex.lut.numel() * 4 / 1e9}
+    batches["recoded"] = run_batch("auto")
+
+    forests, gbdt_calls = {}, {}
+    for mode in ("fixed", "auto"):
+        h = session.load_forest(forest, name=f"forest_{mode}",
+                                representation=mode)
+        with KernelCalls() as rec:
+            job = session.predict(h, X)
+        expect(np.array_equal(job.result, want_preds),
+               f"phase 11 {mode} forest predictions")
+        gex = session.executor(h)
+        (gbdt_calls[mode],) = rec.take()
+        forests[mode] = {
+            "plan": [int(gex.plan.n_bits), gex.num_chunks],
+            "lut_shape": list(gex.lut.shape),
+            "predict_wallclock_ms": job.wallclock_ns / 1e6}
+    counts = K.launch_counts()
+    for k in ("temporal_encode", "fused_predicate_banked",
+              "fused_compound_banked", "gbdt_leafbits_banked"):
+        expect(counts[k] > 0, f"{k} not launched in phase 11")
+    rep["launches"] = counts
+
+    # each job's first launch (its WHERE clause) and each forest's
+    # leaf bits, timed again alone
+    flush = torch.ones(64 << 20, dtype=torch.int32,
+                       device=torch.device("cuda"))
+    for mode, batch in batches.items():
+        for r in batch.values():
+            calls = r.pop("calls")
+            r["launches"] = len(calls)
+            r.update(time_launch(torch, calls[0], flush))
+    rep["queries"] = batches
+    for mode, call in gbdt_calls.items():
+        forests[mode]["gbdt_leafbits_banked_cold_ms"] = time_launch(
+            torch, call, flush)["cold_ms"]
+    rep["forests"] = forests
+    del flush, batches, gbdt_calls, ex, gex, session, handles
+    free(torch)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    report["lineitem"] = rep
+    return counts
+
+
+# --------------------------------------------------------------------- #
 # Phase 8: times and bounds at the main path's shapes
 # --------------------------------------------------------------------- #
 
@@ -2483,6 +2783,11 @@ def main() -> int:
     for row in rows:
         row["launches"] += ocounts[row["name"]]
     log(f"phase 10: opt variant ok in {report['opt']['phase_s']:.1f} s")
+    free(torch)
+    lcounts11 = run_lineitem_path(torch, report)
+    for row in rows:
+        row["launches"] += lcounts11[row["name"]]
+    log(f"phase 11: lineitem ok in {report['lineitem']['phase_s']:.1f} s")
 
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)
@@ -2490,6 +2795,8 @@ def main() -> int:
     report["total_s"] = time.perf_counter() - t0
     log("report " + json.dumps(report))
 
+    print("phase11 " + json.dumps(lineitem_summary(report["lineitem"])),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Bit conventions shared by the Hopper kernels and their plain versions.
 
 * Bitmaps are packed little-endian: element ``i`` is bit ``i % 32`` of
-  word ``i // 32`` (NumPy :func:`pack_bits` / :func:`unpack_bits`).
+  word ``i // 32`` (NumPy :func:`pack_bits` / :func:`unpack_bits`, from
+  :mod:`repro_torch.core.machine`).
 * Words travel as **int32 bit patterns**: PyTorch has no usable
   ``uint32`` (its ``>>``, ``<<`` and ``<`` raise on the CPU) and no
   popcount, so NumPy ``uint32`` arrays cross with ``.view(np.int32)``
@@ -14,12 +15,14 @@
 
 from __future__ import annotations
 
-import sys
-
-import numpy as np
 import torch
 
-WORD_BITS = 32
+from repro_torch.core.machine import (  # noqa: F401  (re-exported)
+    WORD_BITS,
+    pack_bits,
+    unpack_bits,
+)
+
 LANES = 128
 SUBLANES = 8
 MASK32 = 0xFFFFFFFF
@@ -93,41 +96,6 @@ def check_words(t: torch.Tensor, ndim: int, what: str = "LUT") -> None:
     if t.dim() != ndim or t.dtype != torch.int32:
         raise ValueError(f"{what} must be a {ndim}-D int32 tensor, got "
                          f"{t.dim()}-D {t.dtype}")
-
-
-# ------------------------ NumPy packing (host) ------------------------ #
-
-def pack_bits(bits: np.ndarray) -> np.ndarray:
-    """Pack 0/1 bits [..., N] into uint32 words [..., ceil(N/32)],
-    little-endian within the word."""
-    bits = np.asarray(bits)
-    bits = bits.view(np.uint8) if bits.dtype == np.bool_ \
-        else bits.astype(np.uint8, copy=False)
-    n = bits.shape[-1]
-    pad = (-n) % WORD_BITS
-    if pad:
-        bits = np.concatenate(
-            [bits, np.zeros(bits.shape[:-1] + (pad,), np.uint8)], axis=-1
-        )
-    if sys.byteorder == "little":
-        packed = np.packbits(bits, axis=-1, bitorder="little")
-        return np.ascontiguousarray(packed).view(np.uint32)
-    b = bits.reshape(*bits.shape[:-1], -1, WORD_BITS).astype(np.uint32)
-    shifts = np.arange(WORD_BITS, dtype=np.uint32)
-    return (b << shifts).sum(axis=-1, dtype=np.uint32)
-
-
-def unpack_bits(words: np.ndarray, n: int) -> np.ndarray:
-    """Inverse of :func:`pack_bits`; returns uint8 bits [..., n]."""
-    words = np.asarray(words, dtype=np.uint32)
-    if sys.byteorder == "little":
-        as_bytes = np.ascontiguousarray(words).view(np.uint8)
-        bits = np.unpackbits(as_bytes, axis=-1, bitorder="little")
-        return bits[..., :n]
-    shifts = np.arange(WORD_BITS, dtype=np.uint32)
-    bits = (words[..., :, None] >> shifts) & np.uint32(1)
-    bits = bits.reshape(*words.shape[:-1], -1)
-    return bits[..., :n].astype(np.uint8)
 
 
 # ------------------------ torch twins (device) ------------------------ #

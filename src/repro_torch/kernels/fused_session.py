@@ -81,6 +81,10 @@ class FusedTableExec:
                 f"plans for {self.num_features} features")
         if plans is not None:
             for i, (p, f) in enumerate(zip(self.plans, table.features)):
+                if p.n_bits > table.n_bits:
+                    raise ValueError(
+                        f"column {i}: plan width {p.n_bits} exceeds the "
+                        f"table's declared {table.n_bits} bits")
                 arr = np.asarray(f, np.uint64)
                 if arr.size and int(arr.max()) > p.max_value:
                     raise ValueError(

@@ -47,7 +47,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "serve.engine", "launch.serve", "data.pipeline",
               "train.tree", "train.optimizer", "train.train_step",
               "train.checkpoint", "train.straggler", "train.loop",
-              "launch.train", "dist.compression", "dist.ddp"):
+              "launch.train", "dist.compression", "dist.ddp",
+              "core.machine", "core.clutch", "core.cost", "core.scheduler",
+              "pud.planner"):
         assert f"repro_torch.{m}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -5,7 +5,9 @@ runs the same queries and forests as ``repro``'s
 ``PudSession(backend="machine")`` (the NumPy DRAM simulator) on the same
 data.  Bitmaps, counts and Q4's average are equal; predictions are
 equal with zero tolerance, because both sum leaves with the same
-``assemble_leaves`` expression.
+``assemble_leaves`` expression.  With ``representation="auto"`` both
+sessions choose the same per-column plans, report the same dicts, and
+recode columns with the same results and errors.
 """
 
 import numpy as np
@@ -13,10 +15,12 @@ import pytest
 
 from repro.apps import gbdt as JG
 from repro.apps import predicate as JP
+from repro.core import machine as JMachine
 from repro.pud import PudSession as JSession
 from repro.pud import queries as JQ
 from repro_torch import convert
 from repro_torch.apps import gbdt as TG
+from repro_torch.core.machine import PuDArch
 from repro_torch.pud import PudSession, queries as TQ
 
 
@@ -167,12 +171,202 @@ def test_resource_lifetime_and_unported_options():
     assert h.status == "dropped"
     with pytest.raises(KeyError):
         s.query(h, q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.create_table(t, representation="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.recode_column(h, 0, n_bits=4)
+    with pytest.raises(ValueError, match="representation"):
+        s.create_table(t, representation="bogus")
+    with pytest.raises(ValueError, match="representation"):
+        s.load_forest(TG.ObliviousForest.random(2, 2, 2, 8),
+                      representation="bogus")
     arr = np.stack([np.arange(300) % 256, np.arange(300) % 9], axis=1)
     h2 = s.create_table(arr, n_bits=8)
     assert s.query(h2, q).result.sum() == q.reference(t).sum()
     with pytest.raises(TypeError, match="table"):
         s.predict(h2, np.zeros((1, 2), np.uint64))
+
+
+# ---------------------- adaptive representation ----------------------- #
+
+ARCHS = [(JMachine.PuDArch.MODIFIED, PuDArch.MODIFIED),
+         (JMachine.PuDArch.UNMODIFIED, PuDArch.UNMODIFIED)]
+ARCH_IDS = ["modified", "unmodified"]
+
+
+def _mixed_data(n=400, seed=0):
+    """A 4-, 8- and 12-bit column (``tests/test_adaptive_precision.py``'s
+    table)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, 13, n), rng.integers(0, 220, n),
+                     rng.integers(0, 3500, n)], axis=1).astype(np.uint64)
+
+
+def _mixed_queries(Q):
+    return [
+        Q.Q1(fi=0, x0=2, x1=9),
+        Q.Q1(fi=0, x0=3, x1=(1 << 32) - 1),           # x1 past MAX_f
+        Q.Q2(fi=0, x0=1, x1=10, fj=2, y0=100, y1=3000),
+        Q.Q3(fi=1, x0=10, x1=150, fj=2, y0=100, y1=2500),
+        Q.Q4(fk=2, fi=0, x0=1, x1=8, fj=1, y0=5, y1=180),
+        Q.Q5(fl=2, fk=1, fi=0, x0=1, x1=8, fj=2, y0=0, y1=2000),
+        Q.Compound((Q.Q1(fi=0, x0=1, x1=9),
+                    Q.Q3(fi=1, x0=10, x1=150, fj=2, y0=0, y1=2500)),
+                   ("and",), count=True),
+        Q.Compound((Q.Q1(fi=2, x0=700, x1=4000), Q.Q2(fi=0, x0=0, x1=12,
+                                                     fj=1, y0=3, y1=300)),
+                   ("or",)),
+    ]
+
+
+def _assert_results_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert type(g) is type(w) and g == w
+
+
+def _plans(plans):
+    return [(p.n_bits, p.num_chunks) for p in plans]
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=ARCH_IDS)
+def test_auto_table_matches_reference_machine_session(arch):
+    """Plans, reports and Q1-Q5 / compound results equal the reference
+    machine session's, and the port's auto table answers as its fixed
+    one does."""
+    data = _mixed_data()
+    js = JSession(num_devices=2, arch=arch[0])
+    ja = js.create_table(data, n_bits=12, name="auto",
+                         representation="auto")
+    jf = js.create_table(data, n_bits=12, name="fix", num_chunks=3)
+    ts = PudSession(num_devices=2, arch=arch[1], device="cpu")
+    ta = ts.create_table(data, n_bits=12, name="auto",
+                         representation="auto")
+    tf = ts.create_table(data, n_bits=12, name="fix", num_chunks=3)
+    assert _plans(ts._plans["auto"]) == _plans(js._plans["auto"])
+    assert [p.n_bits for p in ts._plans["auto"]] == [4, 8, 12]
+    assert "fix" not in ts._plans
+    assert ta.representation == ja.representation
+    assert tf.representation == jf.representation
+    assert ta.representation["mode"] == "auto"
+    assert ta.representation["saved_rows"] > 0
+    want = js.query(ja, _mixed_queries(JQ)).result
+    got = ts.query(ta, _mixed_queries(TQ)).result
+    _assert_results_equal(got, want)
+    _assert_results_equal(ts.query(tf, _mixed_queries(TQ)).result, want)
+    ex = ts.executor(ta)
+    assert ex.plans == tuple(ts._plans["auto"])
+    cfg = js.executor(ja).fused_config()
+    assert (ex.num_shards, ex.num_chunks) == \
+        (cfg["num_shards"], cfg["num_chunks"])
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=ARCH_IDS)
+def test_auto_forest_matches_reference_machine_session(arch):
+    rng = np.random.default_rng(2)
+    n_feat, trees, depth = 5, 12, 3
+    f = JG.ObliviousForest(
+        rng.integers(0, n_feat, size=(trees, depth)).astype(np.int32),
+        rng.integers(0, 400, size=(trees, depth)).astype(np.uint64),
+        rng.normal(size=(trees, 1 << depth)).astype(np.float32),
+        12, n_feat)
+    X = rng.integers(0, 4096, size=(40, n_feat)).astype(np.uint64)
+    js = JSession(num_devices=2, arch=arch[0])
+    jh = js.load_forest(f, name="f", representation="auto")
+    ts = PudSession(num_devices=2, arch=arch[1], device="cpu")
+    tf = convert.forest(f.feature_idx, f.thresholds, f.leaves, f.n_bits,
+                        f.num_features)
+    th = ts.load_forest(tf, name="f", representation="auto")
+    tfix = ts.load_forest(tf, name="fix", num_chunks=3)
+    plan = ts._forest_plans["f"]
+    want = js._forest_plans["f"]
+    assert (plan.n_bits, plan.num_chunks) == (want.n_bits, want.num_chunks)
+    assert plan.n_bits < 12
+    assert "fix" not in ts._forest_plans
+    got = ts.predict(th, X).result
+    np.testing.assert_array_equal(got, js.predict(jh, X).result)
+    np.testing.assert_array_equal(got, ts.predict(tfix, X).result)
+    assert ts.executor(th).num_chunks == plan.num_chunks
+
+
+def test_recode_column_matches_reference_machine_session():
+    """A recode evicts the table, the next job rebuilds it with equal
+    results; a recode the data overflows names the column; a fixed
+    table gets declared-width plans seeded first.  Reports follow the
+    reference session's at each step."""
+    data = _mixed_data()
+    js, ts = JSession(num_devices=2), PudSession(num_devices=2,
+                                                 device="cpu")
+    jt = js.create_table(data, n_bits=12, name="t", representation="auto")
+    tt = ts.create_table(data, n_bits=12, name="t", representation="auto")
+    before = ts.query(tt, _mixed_queries(TQ)).result
+    new = ts.recode_column(tt, 1, n_bits=9, num_chunks=3)
+    assert _plans([new]) == _plans(
+        [js.recode_column(jt, 1, n_bits=9, num_chunks=3)]) == [(9, 3)]
+    assert tt.status == "evicted"
+    after = ts.query(tt, _mixed_queries(TQ)).result
+    assert tt.status == "ready"
+    _assert_results_equal(after, before)
+    _assert_results_equal(after, js.query(jt, _mixed_queries(JQ)).result)
+    assert ts.executor(tt).plans[1] == new
+    assert tt.representation == jt.representation
+    # omitted arguments keep the column's current value
+    for col, kw in ((2, {"num_chunks": 2}), (0, {"n_bits": 6})):
+        assert _plans([ts.recode_column(tt, col, **kw)]) == \
+            _plans([js.recode_column(jt, col, **kw)])
+    assert tt.representation == jt.representation
+    for s, h in ((ts, tt), (js, jt)):
+        with pytest.raises(ValueError, match="column 2"):
+            s.recode_column(h, 2, n_bits=8)
+        with pytest.raises(IndexError):
+            s.recode_column(h, 3, n_bits=8)
+    assert tt.representation == jt.representation
+    # a fixed table seeds declared-width plans, then moves one column
+    jt2 = js.create_table(data, n_bits=12, name="t2", num_chunks=3)
+    tt2 = ts.create_table(data, n_bits=12, name="t2", num_chunks=3)
+    assert tt2.representation == jt2.representation
+    assert _plans([ts.recode_column(tt2, 0, n_bits=4)]) == \
+        _plans([js.recode_column(jt2, 0, n_bits=4)])
+    assert _plans(ts._plans["t2"]) == _plans(js._plans["t2"])
+    assert tt2.representation == jt2.representation
+    assert tt2.representation["mode"] == "auto"
+    _assert_results_equal(ts.query(tt2, _mixed_queries(TQ)).result, before)
+    # a dropped table is unknown, to both
+    for s, h in ((ts, tt2), (js, jt2)):
+        s.drop(h)
+        with pytest.raises(KeyError):
+            s.recode_column(h, 0, n_bits=4)
+        with pytest.raises(KeyError):
+            s.representation_report(h)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=ARCH_IDS)
+def test_recode_over_budget_rolls_back_as_the_reference_does(arch):
+    data = np.stack([np.arange(8, dtype=np.uint64) % 4] * 3, axis=1)
+    js = JSession(num_devices=1, num_rows=256, arch=arch[0])
+    ts = PudSession(num_devices=1, num_rows=256, arch=arch[1], device="cpu")
+    jt = js.create_table(data, n_bits=8, name="t", representation="auto")
+    tt = ts.create_table(data, n_bits=8, name="t", representation="auto")
+    old = list(ts._plans["t"])
+    assert _plans(old) == _plans(js._plans["t"])
+    errors = []
+    for s, h in ((ts, tt), (js, jt)):
+        with pytest.raises(MemoryError) as err:
+            s.recode_column(h, 0, n_bits=8, num_chunks=1)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert list(ts._plans["t"]) == old                # rolled back
+    assert tt.status == "ready"                       # and not evicted
+    assert tt.representation == jt.representation
+
+
+def test_auto_table_under_a_taken_name_keeps_the_first():
+    data = _mixed_data(n=64)
+    s = PudSession(device="cpu")
+    h = s.create_table(data, n_bits=12, name="t", representation="auto")
+    plans = list(s._plans["t"])
+    with pytest.raises(ValueError, match="already exists"):
+        s.create_table(data[:, :2], n_bits=12, name="t")
+    assert s._plans["t"] == plans and len(s._tables["t"].features) == 3
+    q = TQ.Q1(fi=2, x0=5, x1=3000)
+    np.testing.assert_array_equal(s.query(h, q).result,
+                                  q.reference(s._tables["t"]))
