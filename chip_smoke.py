@@ -88,7 +88,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
    (``x.amax(dim=0)`` over a contiguous ``[rows, words]`` tensor, cold),
    and the predicate and compound timed again on the LUT and on a fresh
    copy of it (``cold_ms_again``, ``cold_ms_fresh_lut``);
-   the ``kernels`` JSON line and the ok line are printed after phase 11.
+   the ``kernels`` JSON line and the ok line are printed after phase 12.
 9. Training, on a clean card (the LUT, forest and models of
    phases 3-7 dropped): reduced ``granite-moe-3b-a800m`` in float32,
    two train steps and two compressed DDP steps on the card and on the
@@ -156,6 +156,32 @@ Phases (any failure exits non-zero; none is caught and passed over):
     standard output gives plans, LUT sizes, build and rebuild seconds,
     each job's wall-clock, cold time, bound and distinct rows, the
     forests and the launches.
+12. The PuD serving stack under offered load, last, in the shapes of
+    ``benchmarks/serving_load.py``: its 8-bit, 8-feature table at 2^25
+    records (2 shards, 2 chunks) and a forest of 1000 trees of depth 6
+    over its 8 features, served by ``repro_torch.serve``'s
+    ``ServingLoop`` (``AdmissionController``, capacity 24, starvation
+    bound 12; ``DeadlineBatcher``; batches of 6) over a ``PudService``.
+    The probe batch (Q1, Q2, Q3, Q5) runs once, exact, then 3 times:
+    its median wall-clock ``m_probe`` gives the capacity 4 / ``m_probe``
+    and the interactive deadline ``m_probe``.  Runs: interactive
+    (Q1-Q3, weight 4, the deadline) and bulk (Q4, Q5, counted
+    ``merge="dram"`` compounds, 30 % predicts of 8 instances; weight 1)
+    arrivals, 40 each, Poisson at 0.15, 0.5 and 1.5 times the capacity
+    and bursty at 0.5 (on and off windows of 0.632 ``m_probe``); then
+    16 synchronized cohorts (four Q1s with a deadline of 0.2
+    ``m_probe``, two Q5 or compound scans) with splitting and without.
+    Each run is profiled.  Checks: every committed response of the 0.5x
+    Poisson run and the split cohorts equals its NumPy reference (a
+    seeded 8 of each other run's), every failure carries an error and
+    every unexecuted request a 429, p99 >= p50, each committed
+    sub-batch's shares sum to its job's wall-clock and stack into the
+    dispatch's makespan, and the predicate, compound and leaf-bits
+    kernels launch.  A ``phase12`` JSON line on standard output gives
+    each run's p50, p99, goodput, sheds, splits, probes against
+    committed jobs (and the discarded probes' wall-clock), simulated
+    against real seconds, and the device-busy share, with the
+    wall-clock of every one-request job by query kind.
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -171,6 +197,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -315,6 +342,22 @@ LINEITEM_AUTO_PLANS = {
     "unmodified": ((27, 9), (20, 6), (16, 4), (6, 1), (24, 8), (4, 1),
                    (4, 1), (12, 3)),
 }
+# phase 12: the PuD serving stack under offered load, in the shapes of
+# benchmarks/serving_load.py: its 8-bit, 8-feature table (seed 13) at
+# phase 3's record count (2 shards, the paper's 2 chunks), and phase 4's
+# 1000 trees of depth 6 over the table's 8 features, since the bulk mix
+# draws its instances over them
+SERVE_RECORDS = 2 ** 25
+SERVE_MAX_BATCH = 6
+SERVE_LOAD_FRACS = (0.15, 0.5, 1.5)   # x the probed capacity
+SERVE_ARRIVALS = 40                   # per class and run
+# the bursty point's on and off windows, in probe makespans: the
+# reference benchmark's 4e5 ns over its own probe makespan of 633,050 ns
+SERVE_BURST_WINDOW = 0.632
+SERVE_COHORTS = 16
+# committed responses checked against NumPy in a run that is not
+# checked in full (the 0.5x Poisson point and the split cohorts are)
+SERVE_SAMPLE = 8
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -2296,6 +2339,331 @@ def run_lineitem_path(torch, report) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# Phase 12: the PuD serving stack under offered load
+# --------------------------------------------------------------------- #
+
+def serving_mixes(Arr, deadline_ns: float):
+    """``benchmarks/serving_load.py``'s ``_mixes``: light deadline-bearing
+    queries (weight 4) against scans and GBDT inference (weight 1)."""
+    interactive = Arr.WorkloadMix(
+        table="events", kinds=("q1", "q2", "q3"),
+        classes=(Arr.ClassSpec("interactive", weight=4.0,
+                               deadline_ns=deadline_ns),))
+    bulk = Arr.WorkloadMix(
+        table="events", forest="rank", predict_frac=0.3, predict_batch=8,
+        kinds=("q4", "q5", "compound"),
+        classes=(Arr.ClassSpec("bulk", weight=1.0),))
+    return interactive, bulk
+
+
+def serving_arrivals(Arr, rate_rps: float, deadline_ns: float, seed: int,
+                     burst_ns: float | None = None) -> list:
+    """Merged interactive + bulk open-loop arrivals at ``rate_rps`` in
+    all (half each), Poisson, or bursty with on and off windows of
+    ``burst_ns``."""
+    inter, bulk = serving_mixes(Arr, deadline_ns)
+    gen, kw = Arr.poisson_arrivals, {}
+    if burst_ns is not None:
+        gen = Arr.bursty_arrivals
+        kw = dict(on_ns=burst_ns, off_ns=burst_ns, burst_factor=4.0)
+    a = gen(inter, rate_rps=rate_rps / 2, n=SERVE_ARRIVALS, seed=seed, **kw)
+    b = gen(bulk, rate_rps=rate_rps / 2, n=SERVE_ARRIVALS, seed=seed + 1,
+            rid_base=100_000, **kw)
+    return sorted(a + b, key=lambda x: x.arrive_ns)
+
+
+def burst_cohorts(Arr, period_ns: float, deadline_ns: float,
+                  seed: int) -> list:
+    """``serving_load.py``'s synchronized cohorts: every ``period_ns``
+    four interactive Q1s (tight deadline) arrive with two bulk scans."""
+    inter = Arr.WorkloadMix(
+        table="events", kinds=("q1",),
+        classes=(Arr.ClassSpec("interactive", weight=4.0,
+                               deadline_ns=deadline_ns),))
+    bulk = Arr.WorkloadMix(
+        table="events", kinds=("q5", "compound"),
+        classes=(Arr.ClassSpec("bulk", weight=1.0),))
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(SERVE_COHORTS):
+        t0 = b * period_ns
+        out += [inter.sample_request(rng, b * 100 + k, t0)
+                for k in range(4)]
+        out += [bulk.sample_request(rng, b * 100 + 10 + k, t0)
+                for k in range(2)]
+    return out
+
+
+def recording_batcher(B, S):
+    """A service that keeps each probe (its rids, attributed latencies
+    and job) and a batcher that keeps each dispatch's outcome with its
+    probes, so phase 12 can check attribution and results afterwards."""
+
+    class RecordingService(S.PudService):
+        def __init__(self, session):
+            super().__init__(session)
+            self.probes = []
+
+        def _run_batch(self, handle, kind, reqs):
+            resps = super()._run_batch(handle, kind, reqs)
+            self.probes.append(([r.rid for r in reqs],
+                                [r.latency_ns for r in resps],
+                                self.last_job))
+            return resps
+
+    class RecordingBatcher(B.DeadlineBatcher):
+        def __init__(self, service, enabled=True):
+            super().__init__(service, enabled=enabled)
+            self.dispatches = []
+
+        def dispatch(self, handle, kind, reqs):
+            first = len(self.service.probes)
+            out = super().dispatch(handle, kind, reqs)
+            self.dispatches.append((out, self.service.probes[first:]))
+            return out
+
+    return RecordingService, RecordingBatcher
+
+
+def check_attribution(out, probes) -> None:
+    """A dispatch's committed sub-batches, in commit order: each one's
+    attributed shares sum to its job's measured wall-clock (within 1e-9
+    relative: shares rounded and summed again), each committed response
+    is its share offset by the spans committed before it, and the
+    outcome's makespan is the last offset plus its span (both exact:
+    the batcher's own arithmetic)."""
+    committed = [p for p in probes if any(p[2] is j for j in out.jobs)]
+    expect(len(committed) == len(out.jobs),
+           f"{len(out.jobs)} committed jobs, {len(committed)} probes found")
+    by_rid = {r.rid: r for r in out.responses}
+    offset = 0.0
+    for rids, lats, job in committed:
+        wall = job.wallclock_ns
+        expect(abs(sum(lats) - wall) <= 1e-9 * wall,
+               f"shares {sum(lats)} ns vs the job's wall-clock {wall} ns")
+        for rid, lat in zip(rids, lats):
+            expect(by_rid[rid].latency_ns == offset + lat,
+                   f"request {rid}: latency {by_rid[rid].latency_ns} vs "
+                   f"{offset} + {lat}")
+        offset = offset + max(lats)
+    expect(out.makespan_ns == offset,
+           f"makespan {out.makespan_ns} vs the offsets' {offset}")
+
+
+def check_served_result(req, got, table, forest) -> None:
+    """A request's result against its NumPy reference: bitmaps and
+    counts exact, Q4's mean within 1e-9 (``check``), predictions
+    bit-equal to ``assemble_leaves`` over the reference addresses."""
+    from repro_torch.apps import gbdt as G
+
+    if req.query is not None:
+        want = req.query.reference(table)
+        if isinstance(want, np.ndarray):
+            expect(np.array_equal(got, want),
+                   f"request {req.rid} {req.query}: bitmap")
+        else:
+            expect(req.query.check(table, got),
+                   f"request {req.rid} {req.query}: {got} vs {want}")
+        return
+    X = np.asarray(req.X, dtype=np.uint64)
+    addrs = np.ascontiguousarray(G.reference_leaf_addrs(forest, X))
+    expect(np.array_equal(got, G.assemble_leaves(forest.leaves, addrs)),
+           f"request {req.rid}: predictions")
+
+
+def profiled_run(torch, fn):
+    """``fn()`` under ``torch.profiler``: its result, the host seconds it
+    took and the device milliseconds the profiler saw (kernels and
+    copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA") / 1e3
+    return out, real_s, device_ms
+
+
+def run_serving_path(torch, report) -> dict:
+    """Phase 12: ``repro_torch.serve``'s loop, admission and deadline
+    batcher over a ``PudService`` on the card, under
+    ``benchmarks/serving_load.py``'s offered loads.  Every check fails
+    the run; the serving numbers are reported, not gated."""
+    import repro_torch.kernels as K
+    from repro_torch.apps import gbdt as G
+    from repro_torch.apps.predicate import Table
+    from repro_torch.pud import PudSession, queries as Q
+    from repro_torch.serve import admission as A, arrivals as Arr
+    from repro_torch.serve import batcher as B, loop as L
+    from repro_torch.serve import pud_service as S
+
+    t_phase = time.perf_counter()
+    table = Table.generate(SERVE_RECORDS, 8, num_features=8, seed=13)
+    forest = G.ObliviousForest.random(num_trees=1000, depth=6,
+                                      num_features=8, n_bits=8, seed=7)
+    generate_s = time.perf_counter() - t_phase
+    rep: dict = {
+        "records": SERVE_RECORDS, "n_bits": 8, "features": 8,
+        "trees": 1000, "depth": 6, "generate_s": generate_s,
+        "departures": "the table is declared 8-bit (serving_load.py's "
+                      "width) where phase 3's is 32-bit; the forest has "
+                      "8 features where phase 4's has 28, since the bulk "
+                      "mix draws instances over the table's 8"}
+    session = PudSession()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    session.create_table(table, name="events")
+    session.load_forest(forest, name="rank")
+    torch.cuda.synchronize()
+    rep["build_s"] = time.perf_counter() - t0
+    RecordingService, RecordingBatcher = recording_batcher(B, S)
+    svc = RecordingService(session)
+    ex = session.executor(svc._handle("events", "query"))
+    rep.update(shards=ex.num_shards, chunks=ex.num_chunks,
+               lut_shape=list(ex.lut.shape),
+               lut_gb=ex.lut.numel() * 4 / 1e9)
+
+    # capacity and deadline from the probe batch's measured wall-clock
+    mx = 255
+    probe = [Q.Q1(fi=0, x0=mx // 8, x1=mx // 2),
+             Q.Q2(fi=0, x0=mx // 8, x1=mx // 2, fj=1, y0=mx // 4,
+                  y1=3 * mx // 4),
+             Q.Q3(fi=1, x0=mx // 8, x1=mx // 2, fj=2, y0=mx // 4,
+                  y1=3 * mx // 4),
+             Q.Q5(fl=3, fk=2, fi=0, x0=mx // 8, x1=mx // 2, fj=1,
+                  y0=mx // 4, y1=3 * mx // 4)]
+    tbl = svc._handle("events", "query")
+    warm = session.query(tbl, probe)
+    for q, got in zip(probe, warm.result):
+        check_served_result(S.PudRequest(rid=-1, resource="events", query=q),
+                            got, table, forest)
+    walls = [session.query(tbl, probe).wallclock_ns for _ in range(3)]
+    m_probe = float(np.median(walls))
+    cap_rps = len(probe) / (m_probe / 1e9)
+    deadline_ns = 1.0 * m_probe
+    tight_ns = 0.2 * m_probe
+    rep.update(probe_wallclock_ms=[w / 1e6 for w in walls],
+               m_probe_ms=m_probe / 1e6, cap_rps=cap_rps,
+               deadline_ms=deadline_ns / 1e6, tight_deadline_ms=tight_ns / 1e6)
+    classes = (Arr.ClassSpec("interactive", weight=4.0,
+                             deadline_ns=deadline_ns),
+               Arr.ClassSpec("bulk", weight=1.0))
+    burst_classes = (Arr.ClassSpec("interactive", weight=4.0,
+                                   deadline_ns=tight_ns),
+                     Arr.ClassSpec("bulk", weight=1.0))
+    cohorts = burst_cohorts(Arr, 4.0 * m_probe, tight_ns, seed=22)
+    runs = [(f"poisson_x{frac}", classes,
+             serving_arrivals(Arr, frac * cap_rps, deadline_ns, 20 + i),
+             True, frac == 0.5)
+            for i, frac in enumerate(SERVE_LOAD_FRACS)]
+    runs += [(f"bursty_x{SERVE_LOAD_FRACS[1]}", classes,
+              serving_arrivals(Arr, SERVE_LOAD_FRACS[1] * cap_rps,
+                               deadline_ns, 21,
+                               burst_ns=SERVE_BURST_WINDOW * m_probe),
+              True, False),
+             ("cohorts_split", burst_classes, cohorts, True, True),
+             ("cohorts_nosplit", burst_classes, cohorts, False, False)]
+
+    rng = np.random.default_rng(12)
+    rep["runs"] = {}
+    singles: dict = {}
+    for name, cls, arrivals, split, full in runs:
+        batcher = RecordingBatcher(svc, enabled=split)
+        adm = A.AdmissionController(cls, capacity=4 * SERVE_MAX_BATCH,
+                                    starvation_bound=2 * SERVE_MAX_BATCH)
+        loop = L.ServingLoop(svc, adm, batcher, max_batch=SERVE_MAX_BATCH)
+        svc.probes.clear()
+        res, real_s, device_ms = profiled_run(torch,
+                                              lambda: loop.run(arrivals))
+        expect(res.offered == len(arrivals),
+               f"{name}: {res.offered} records of {len(arrivals)} arrivals")
+        for r in res.records:
+            expect(r.ok or bool(r.error), f"{name}: failed request {r.rid} "
+                   "carries no error")
+            expect(r.start_ns is not None or r.error.startswith("429 "),
+                   f"{name}: shed request {r.rid} has a non-429 error "
+                   f"{r.error!r}")
+        if res.completed >= 2:
+            expect(res.p99_ns >= res.p50_ns,
+                   f"{name}: p99 {res.p99_ns} < p50 {res.p50_ns}")
+        requests = {a.rid: a.request for a in arrivals}
+        # each job of one request, committed or not, by query kind
+        for rids, _, job in svc.probes:
+            if len(rids) == 1:
+                q = requests[rids[0]].query
+                kind = "predict" if q is None else q.to_tuple()[0]
+                singles.setdefault(kind, []).append(job.wallclock_ns / 1e6)
+        committed = []
+        for out, probes in batcher.dispatches:
+            check_attribution(out, probes)
+            committed += [r for r in out.responses if r.ok]
+        expect(len(committed) == res.completed,
+               f"{name}: {len(committed)} ok responses, "
+               f"{res.completed} completed records")
+        if not full and len(committed) > SERVE_SAMPLE:
+            pick = rng.choice(len(committed), SERVE_SAMPLE, replace=False)
+            committed = [committed[i] for i in sorted(pick)]
+        # the NumPy references run in threads (their passes over the
+        # 2^25 records release the interpreter lock), after the run
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            for done in [pool.submit(check_served_result, requests[r.rid],
+                                     r.result, table, forest)
+                         for r in committed]:
+                done.result()
+        check_s = time.perf_counter() - t0
+        jobs = [j for out, _ in batcher.dispatches for j in out.jobs]
+        committed_ids = {id(j) for j in jobs}
+        discarded = [p[2].wallclock_ns for out, probes in batcher.dispatches
+                     for p in probes if id(p[2]) not in committed_ids]
+        rep["runs"][name] = {
+            **res.to_json(), "split": split,
+            "p50_ms": res.p50_ns / 1e6, "p99_ms": res.p99_ns / 1e6,
+            "duration_s": res.duration_ns / 1e9, "real_s": real_s,
+            "committed_jobs": len(jobs),
+            "committed_wall_s": sum(j.wallclock_ns for j in jobs) / 1e9,
+            "discarded_probes": len(discarded),
+            "discarded_wall_s": sum(discarded) / 1e9,
+            "device_ms": device_ms,
+            "device_busy": device_ms / 1e3 / real_s,
+            "results_checked": len(committed), "check_s": check_s}
+    rep["single_job_ms [median, min, max, jobs]"] = {
+        k: [float(np.median(v)), min(v), max(v), len(v)]
+        for k, v in sorted(singles.items())}
+    counts = K.launch_counts()
+    for k in ("temporal_encode", "fused_predicate_banked",
+              "fused_compound_banked", "gbdt_leafbits_banked"):
+        expect(counts[k] > 0, f"{k} not launched in phase 12")
+    rep["launches"] = counts
+    del svc, session, ex, tbl, warm, batcher, loop
+    free(torch)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    report["serving"] = rep
+    return counts
+
+
+def serving_summary(rep: dict) -> dict:
+    """Phase 12's numbers for standard output."""
+    keys = ("offered", "completed", "shed", "splits", "probes",
+            "committed_jobs", "discarded_probes", "p50_ms", "p99_ms",
+            "goodput_rps", "duration_s", "real_s", "committed_wall_s",
+            "discarded_wall_s", "device_busy", "results_checked", "check_s")
+    return {
+        **{k: rep[k] for k in ("records", "lut_gb", "generate_s", "build_s",
+                               "m_probe_ms",
+                               "cap_rps", "deadline_ms", "tight_deadline_ms",
+                               "departures", "launches", "phase_s",
+                               "single_job_ms [median, min, max, jobs]")},
+        "runs": {name: {k: r[k] for k in keys}
+                 for name, r in rep["runs"].items()}}
+
+
+# --------------------------------------------------------------------- #
 # Phase 8: times and bounds at the main path's shapes
 # --------------------------------------------------------------------- #
 
@@ -2788,6 +3156,10 @@ def main() -> int:
     for row in rows:
         row["launches"] += lcounts11[row["name"]]
     log(f"phase 11: lineitem ok in {report['lineitem']['phase_s']:.1f} s")
+    scounts = run_serving_path(torch, report)
+    for row in rows:
+        row["launches"] += scounts[row["name"]]
+    log(f"phase 12: serving ok in {report['serving']['phase_s']:.1f} s")
 
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)
@@ -2796,6 +3168,8 @@ def main() -> int:
     log("report " + json.dumps(report))
 
     print("phase11 " + json.dumps(lineitem_summary(report["lineitem"])),
+          flush=True)
+    print("phase12 " + json.dumps(serving_summary(report["serving"])),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -360,6 +360,12 @@ class PudSession:
                 "fixed_lut_rows": fixed_total,
                 "saved_rows": fixed_total - total}
 
+    def resource_kind(self, name: str) -> str | None:
+        """``"table"`` or ``"forest"`` for a resource of this session;
+        ``None`` for a name it does not hold (unknown or dropped)."""
+        recipe = self._recipes.get(name)
+        return None if recipe is None else recipe[0]
+
     def executor(self, handle: ResourceHandle):
         """The resource's executor (rebuilt if evicted): LUT tensors,
         ``launch_counts`` and, for forests, ``leaf_addrs``."""

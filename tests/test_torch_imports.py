@@ -49,7 +49,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "train.checkpoint", "train.straggler", "train.loop",
               "launch.train", "dist.compression", "dist.ddp",
               "core.machine", "core.clutch", "core.cost", "core.scheduler",
-              "pud.planner"):
+              "pud.planner", "serve.pud_service", "serve.arrivals",
+              "serve.admission", "serve.batcher", "serve.loop"):
         assert f"repro_torch.{m}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
