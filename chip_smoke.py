@@ -88,7 +88,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
    (``x.amax(dim=0)`` over a contiguous ``[rows, words]`` tensor, cold),
    and the predicate and compound timed again on the LUT and on a fresh
    copy of it (``cold_ms_again``, ``cold_ms_fresh_lut``);
-   the ``kernels`` JSON line and the ok line are printed after phase 12.
+   the ``kernels`` JSON line and the ok line are printed after phase 13.
 9. Training, on a clean card (the LUT, forest and models of
    phases 3-7 dropped): reduced ``granite-moe-3b-a800m`` in float32,
    two train steps and two compressed DDP steps on the card and on the
@@ -138,8 +138,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
     2^25 records (about SF 5's 30 M rows), eight integer columns
     declared 32-bit with the specification's value ranges
     (:data:`LINEITEM_COLUMNS`, uniform from a seed, each maximum placed
-    once), created twice in one ``PudSession()``: ``fixed`` (8 chunks
-    of 4 bits, an 8.59 GB LUT) and ``representation="auto"``, whose
+    once), created twice in one ``PudSession(backend="fused")``:
+    ``fixed`` (8 chunks of 4 bits, an 8.59 GB LUT) and
+    ``representation="auto"``, whose
     plans must equal :data:`LINEITEM_AUTO_PLANS` (held against the
     reference's chooser by ``tests/test_torch_planner.py``) and whose
     LUT must be smaller.  Phase 3's batch shape (scalars in each
@@ -182,6 +183,27 @@ Phases (any failure exits non-zero; none is caught and passed over):
     committed jobs (and the discarded probes' wall-clock), simulated
     against real seconds, and the device-busy share, with the
     wall-clock of every one-request job by query kind.
+13. The machine backend, last: ``PudSession(num_devices=8,
+    arch=MODIFIED)`` (``backend="machine"``, ``cost.DESKTOP``) over
+    the command-level PuD model whose bank state lives on the card:
+    phase 12's table at 2^25 records (2 shards a device, 16 groups of
+    32 banks, 2 chunks: 248 of 1,016 rows, 4.29 GB of int32 bank
+    state), loaded through ``temporal_encode``; phase 3's query shapes
+    at ``mx = 255`` and the last compound merged on the host too, each
+    equal to NumPy and to the same session's ``backend="fused"`` job
+    bit for bit, every group's PuD ops equal to the closed form; the
+    table dropped and loaded ``method="bitserial"`` for the same
+    queries; phase 12's forest on 2 groups of 4 banks a device
+    (``replicate="rowclone"``, 64 instances a wave), 4,096 instances
+    bit-equal to ``assemble_leaves`` and to the fused job, ops equal to
+    ``gbdt_ops_per_instance`` times the waves; an evict with reload
+    and a ``defragment`` (64 banks moved), 512 instances again after
+    each.  A ``phase13`` JSON line gives the card's numbers (job
+    wall-clock; each load, run under ``torch.profiler``, split into
+    power-up draw, upload and the profiler's spans, with the device
+    time of its ``temporal_encode`` launches; bank-state bytes, peak
+    memory) beside the modeled DDR4 ones (makespan, device
+    span, commands, energy, Clutch over bit-serial).
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -358,6 +380,14 @@ SERVE_COHORTS = 16
 # committed responses checked against NumPy in a run that is not
 # checked in full (the 0.5x Poisson point and the split cohorts are)
 SERVE_SAMPLE = 8
+# phase 13: the machine backend (the PuD model, bank state on the card)
+# over phase 12's table and forest on 8 DESKTOP devices (2 shards of 32
+# banks each: 512 banks of 1,024 rows x 64 Ki columns, 4.29 GB); 64
+# forest replicas of 4 banks predict 4,096 instances, 512 again after
+# the evict and the defragmentation
+MACHINE_DEVICES = 8
+MACHINE_BATCH = 4096
+MACHINE_RECHECK = 512
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -841,7 +871,7 @@ def run_table_path(torch, report):
     t0 = time.perf_counter()
     table = Table.generate(2 ** 25, 32, num_features=8, seed=0)
     report["table_generate_s"] = time.perf_counter() - t0
-    session = PudSession()
+    session = PudSession(backend="fused")
     K.reset_launch_counts()
     t0 = time.perf_counter()
     handle = session.create_table(table, name="lineitem_like")
@@ -887,7 +917,7 @@ def run_gbdt_path(torch, report):
                                       num_features=28, n_bits=8, seed=0)
     X = np.random.default_rng(1).integers(0, 256, (2 ** 16, 28),
                                           dtype=np.uint64)
-    session = PudSession()
+    session = PudSession(backend="fused")
     K.reset_launch_counts()
     handle = session.load_forest(forest, name="higgs_like")
     job = session.predict(handle, X)
@@ -2220,7 +2250,7 @@ def run_lineitem_path(torch, report) -> dict:
     t0 = time.perf_counter()
     table = Table(32, lineitem_columns(LINEITEM_RECORDS, seed=0))
     rep["generate_s"] = time.perf_counter() - t0
-    session = PudSession()
+    session = PudSession(backend="fused")
     # the planner alone, its probe cache cold: the CPU seconds it adds
     # to a create_table
     planner._probe_makespan.cache_clear()
@@ -2514,7 +2544,7 @@ def run_serving_path(torch, report) -> dict:
                       "width) where phase 3's is 32-bit; the forest has "
                       "8 features where phase 4's has 28, since the bulk "
                       "mix draws instances over the table's 8"}
-    session = PudSession()
+    session = PudSession(backend="fused")
     K.reset_launch_counts()
     t0 = time.perf_counter()
     session.create_table(table, name="events")
@@ -2661,6 +2691,312 @@ def serving_summary(rep: dict) -> dict:
                                "single_job_ms [median, min, max, jobs]")},
         "runs": {name: {k: r[k] for k in keys}
                  for name, r in rep["runs"].items()}}
+
+
+# --------------------------------------------------------------------- #
+# Phase 13: the machine backend, its bank state on the card
+# --------------------------------------------------------------------- #
+
+def machine_queries(Q, mx: int):
+    """Phase 3's query shapes at ``mx``, the compound merged in the banks
+    (``"dram"``) and the same compound merged on the host."""
+    qs = table_queries(Q, mx)
+    name, comp = qs[-1]
+    return qs + [(name.replace("count", "count, host merge"),
+                  dataclasses.replace(comp, merge="host"))]
+
+
+def machine_pud_ops(q: tuple, cmp: int, modified: bool) -> int:
+    """Closed form of the PuD ops one bank group issues for a query wire
+    tuple (``QueryBatchExecutor`` on ``PudQueryEngine``), with ``cmp``
+    the ops of one comparison (``clutch_op_count`` or
+    ``bitserial_op_count``) and none of the scalars on a boundary: a
+    range is two saved comparisons (plus the NOT of ``<`` on Modified
+    PuD), a MAJ3 AND (4 ops on Modified PuD, 5 on Unmodified) and a save
+    copy; a wave adds its MAJ3 merge of two ranges and one park copy; an
+    in-bank compound merge is 3 ops a connective (Ambit)."""
+    maj = 4 if modified else 5
+    rng = 2 * cmp + 2 + int(modified) + maj + 1
+
+    def term(t):
+        return rng if t[0] == "q1" else 2 * rng + maj + 1
+
+    name = q[0]
+    if name == "q1":
+        return rng + 1
+    if name in ("q2", "q3", "q4"):
+        return 2 * rng + maj + 1
+    if name == "q5":
+        return 2 * rng + maj + 1 + rng + 1
+    _, _, merge, ops, terms = q
+    if merge == "dram":
+        return sum(term(t) for t in terms) + 3 * len(ops) + 1
+    return sum(rng + 1 if t[0] == "q1" else 2 * rng + maj + 1
+               for t in terms)
+
+
+def job_ops(job) -> dict:
+    """PuD ops and READs per bank group in a machine job's timeline."""
+    out: dict = {}
+    for w in job.timeline.waves:
+        pud, reads = out.get(w.group, (0, 0))
+        if w.op.value == "read":
+            reads += 1
+        elif w.op.value != "write":
+            pud += 1
+        out[w.group] = (pud, reads)
+    return out
+
+
+def modeled(job, sys_cfg) -> dict:
+    """A machine job's modeled numbers: the DRAM model of ``sys_cfg``,
+    not the card's time."""
+    from repro_torch.core import cost
+
+    counts: dict = {}
+    for w in job.timeline.waves:
+        counts[w.op.value] = counts.get(w.op.value, 0) + 1
+    return {"makespan_ns": job.stats.makespan_ns,
+            "device_span_ns": job.timeline.device_span_ns,
+            "overlapped_ns": job.stats.overlapped_ns,
+            "serialized_ns": job.stats.serialized_ns,
+            "energy_nj": cost.timeline_cost(job.timeline, sys_cfg).energy_nj,
+            "commands": counts}
+
+
+def run_machine_path(torch, report) -> dict:
+    """Phase 13: ``PudSession(backend="machine")`` over the command-level
+    PuD model whose bank state lives on the card.
+    Every machine result is held against its NumPy reference and the
+    same session's ``backend="fused"`` job bit for bit, every job's
+    PuD ops per bank group against the closed forms, and the forest's
+    predictions again after an evict with reload and a
+    defragmentation.  Returns the launch counts of the path."""
+    import repro_torch.kernels as K
+    from repro_torch.apps import gbdt as G
+    from repro_torch.apps.predicate import Table
+    from repro_torch.core import cost
+    from repro_torch.core.bitserial import bitserial_op_count
+    from repro_torch.core.clutch import clutch_op_count
+    from repro_torch.core.machine import PuDArch
+    from repro_torch.pud import PudSession, queries as Q
+
+    from torch.profiler import ProfilerActivity, profile
+
+    records, batch = SERVE_RECORDS, MACHINE_BATCH
+    t_phase = time.perf_counter()
+    table = Table.generate(records, 8, num_features=8, seed=13)
+    forest = G.ObliviousForest.random(num_trees=1000, depth=6,
+                                      num_features=8, n_bits=8, seed=7)
+    X = np.random.default_rng(14).integers(0, 256, (batch, 8),
+                                           dtype=np.uint64)
+    rep: dict = {"records": records, "n_bits": 8, "features": 8,
+                 "devices": MACHINE_DEVICES, "system": cost.DESKTOP.name,
+                 "arch": "modified", "generate_s":
+                 time.perf_counter() - t_phase,
+                 "modeled": "DRAM time and energy are the model of "
+                            f"{cost.DESKTOP.name} (DDR4-2666), not the "
+                            "card's"}
+    torch.cuda.reset_peak_memory_stats()
+    session = PudSession(num_devices=MACHINE_DEVICES,
+                         arch=PuDArch.MODIFIED)
+    sys_cfg = session.sys_cfg
+    queries = machine_queries(Q, 255)
+    refs = {}
+    t0 = time.perf_counter()
+    for name, q in queries:
+        refs[name] = q.reference(table)
+    rep["numpy_reference_s"] = time.perf_counter() - t0
+    K.reset_launch_counts()
+
+    def load(method: str) -> tuple:
+        # under the profiler, whose spans split the load's host time:
+        # the engines' record shards, load_vector's chunk extraction and
+        # its upload, launch and row writes; it also reads the device
+        # time of the temporal_encode launches and of the host copies
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            h = session.create_table(table, name=f"events_{method}",
+                                     method=method)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        ex = session.executor(h)
+        subs = [sub for _, sub in ex.placements]
+        spans = {"PudQueryEngine.shard": 0.0, "load_vector.extract": 0.0,
+                 "load_vector.encode": 0.0}
+        encode_ms = htod_ms = 0.0
+        for e in prof.key_averages():
+            if e.device_type.name == "CPU":
+                if e.key in spans:   # (not the spans' device-side twins)
+                    spans[e.key] = e.cpu_time_total / 1e6
+            elif e.device_type.name == "CUDA":
+                if "temporal_encode_kernel" in e.key:
+                    encode_ms += e.self_device_time_total / 1e3
+                elif "HtoD" in e.key:
+                    htod_ms += e.self_device_time_total / 1e3
+        out = {
+            "load_s": load_s,
+            "powerup_draw_s": sum(s.powerup_ns[0] for s in subs) / 1e9,
+            "upload_s": sum(s.powerup_ns[1] for s in subs) / 1e9,
+            "shard_s": spans["PudQueryEngine.shard"],
+            "chunk_extract_s": spans["load_vector.extract"],
+            "chunk_upload_encode_write_s": spans["load_vector.encode"],
+            "temporal_encode_device_ms": encode_ms,
+            "htod_copies_device_ms": htod_ms,
+            "groups": len(subs), "banks": sum(s.num_banks for s in subs),
+            "cols": subs[0].num_cols,
+            "rows_used": subs[0]._alloc_ptr,
+            "bank_state_bytes": sum(s.state.numel() * 4 for s in subs),
+            "chunks": getattr(ex.engines[0], "num_chunks", None)}
+        # the rest of create_table: the table's checks, the planner's
+        # admission, the executor's and engines' bookkeeping, the sync
+        out["other_s"] = load_s - sum(out[k] for k in (
+            "powerup_draw_s", "upload_s", "shard_s", "chunk_extract_s",
+            "chunk_upload_encode_write_s"))
+        return h, out
+
+    def run_queries(h, method: str, cmp: int) -> dict:
+        out = {}
+        for name, q in queries:
+            t0 = time.perf_counter()
+            job = session.query(h, q)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            want = refs[name]
+            if isinstance(want, np.ndarray):
+                expect(np.array_equal(job.result, want),
+                       f"machine {method} {name}: bitmap")
+            elif isinstance(want, float):   # Q4's mean, as check holds it
+                expect(abs(job.result - want) < 1e-9,
+                       f"machine {method} {name}: {job.result} vs {want}")
+            else:
+                expect(job.result == want,
+                       f"machine {method} {name}: {job.result} vs {want}")
+            fused = session.query(h, q, backend="fused") \
+                if method == "clutch" else None
+            if fused is not None:
+                same = (np.array_equal(job.result, fused.result)
+                        if isinstance(want, np.ndarray)
+                        else job.result == fused.result)
+                expect(same, f"machine {name} differs from fused")
+            ops = job_ops(job)
+            want_ops = machine_pud_ops(q.to_tuple(), cmp, modified=True)
+            expect(len(ops) == 2 * MACHINE_DEVICES and all(
+                p == want_ops for p, _ in ops.values()),
+                f"machine {method} {name}: PuD ops per group "
+                f"{sorted(set(p for p, _ in ops.values()))} vs the "
+                f"closed form {want_ops}")
+            out[name] = {"card_wall_s": wall_s,
+                         "pud_ops_per_group": want_ops,
+                         "reads_per_group": max(r for _, r in ops.values()),
+                         "fused_wall_ms": None if fused is None
+                         else fused.wallclock_ns / 1e6,
+                         **modeled(job, sys_cfg)}
+        return out
+
+    # ---- the table, Clutch (the paper's 2 chunks) then bit-serial ---- #
+    h, rep["clutch_load"] = load("clutch")
+    groups = 2 * MACHINE_DEVICES
+    banks = groups * -(-(-(-records // groups)) // 65536)  # 512 at 2^25
+    expect(rep["clutch_load"]["banks"] == banks,
+           f"{rep['clutch_load']['banks']} banks, not {banks}")
+    cmp = clutch_op_count(rep["clutch_load"]["chunks"], PuDArch.MODIFIED)
+    rep["clutch"] = run_queries(h, "clutch", cmp)
+    session.drop(h)
+    h, rep["bitserial_load"] = load("bitserial")
+    rep["bitserial"] = run_queries(
+        h, "bitserial", bitserial_op_count(8, PuDArch.MODIFIED))
+    session.drop(h)
+    # modeled: the makespan holds the host merges the card's host timed;
+    # the device span is the DRAM side alone
+    rep["clutch_over_bitserial_modeled"] = {
+        name: {k: rep["clutch"][name][k] / rep["bitserial"][name][k]
+               for k in ("makespan_ns", "device_span_ns")}
+        for name, _ in queries}
+
+    # ---- the forest: 2 groups of 4 banks a device, rowclone replicas -- #
+    t0 = time.perf_counter()
+    fh = session.load_forest(forest, name="rank", groups_per_device=2,
+                             banks_per_group=4, replicate="rowclone")
+    torch.cuda.synchronize()
+    fex = session.executor(fh)
+    rep["forest_load_s"] = time.perf_counter() - t0
+    rep["forest_wave_width"] = fex.wave_width
+    expect(fex.wave_width == 64, f"wave width {fex.wave_width}")
+    addrs = np.ascontiguousarray(G.reference_leaf_addrs(forest, X))
+    want = G.assemble_leaves(forest.leaves, addrs)
+    ref_err = float(np.abs(want - G.reference_predict(forest, X)).max())
+    expect(ref_err <= 1e-3, f"assemble_leaves vs reference_predict {ref_err}")
+
+    def predict(fh, n: int, what: str) -> tuple:
+        t0 = time.perf_counter()
+        job = session.predict(fh, X[:n])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        expect(np.array_equal(job.result, want[:n]),
+               f"machine predictions {what}")
+        return job, wall_s
+
+    job, wall_s = predict(fh, batch, "")
+    fused = session.predict(fh, X, backend="fused")
+    expect(np.array_equal(fused.result, job.result),
+           "machine predictions differ from fused")
+    per_inst = G.gbdt_ops_per_instance(forest, fex.engines[0].num_chunks,
+                                       PuDArch.MODIFIED)
+    waves = -(-batch // fex.wave_width)
+    ops = job_ops(job)
+    expect(all(p == waves * per_inst for p, _ in ops.values()),
+           f"GBDT PuD ops per group {sorted(set(ops.values()))} vs "
+           f"{waves} waves x {per_inst}")
+    rep["gbdt"] = {"instances": batch, "waves": waves,
+                   "pud_ops_per_instance": per_inst,
+                   "card_wall_s": wall_s,
+                   "fused_wall_ms": fused.wallclock_ns / 1e6,
+                   **modeled(job, sys_cfg)}
+    del fex
+
+    # ---- planner: evict and reload, then defragment ------------------- #
+    session.evict(fh)
+    expect(fh.status == "evicted", f"status {fh.status} after evict")
+    _, rep["reload_predict_s"] = predict(fh, MACHINE_RECHECK, "after the reload")
+    fh2 = session.load_forest(forest, name="rank2", groups_per_device=2,
+                              banks_per_group=4, replicate="rowclone")
+    session.drop(fh)
+    holes = [d.largest_free_run for d in session.devices]
+    moved = sum(d.defragment() for d in session.devices)
+    expect(moved == 16 * 4, f"{moved} banks moved, not 64")
+    _, rep["defrag_predict_s"] = predict(fh2, MACHINE_RECHECK,
+                                         "after the defragmentation")
+    rep["planner"] = {**session.planner_stats(),
+                      "largest_free_run_before_defrag": holes,
+                      "defrag_banks_moved": moved}
+    session.drop(fh2)
+    counts = K.launch_counts()
+    for k in ("temporal_encode", "fused_predicate_banked",
+              "fused_compound_banked", "gbdt_leafbits_banked"):
+        expect(counts[k] > 0, f"{k} not launched on the machine path")
+    rep["launches"] = counts
+    rep["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rep["phase_s"] = time.perf_counter() - t_phase
+    report["machine"] = rep
+    return counts
+
+
+def machine_summary(rep: dict) -> dict:
+    """Phase 13's numbers for standard output: the card's own (wall
+    seconds, load split, state bytes, peak memory) beside the modeled
+    DESKTOP DRAM numbers, each labelled."""
+    jobs = {f"{m}:{name}": {k: r[k] for k in (
+        "card_wall_s", "fused_wall_ms", "makespan_ns", "device_span_ns",
+        "energy_nj", "commands")}
+        for m in ("clutch", "bitserial") for name, r in rep[m].items()}
+    return {**{k: rep[k] for k in (
+        "records", "devices", "system", "modeled", "generate_s",
+        "clutch_load", "bitserial_load", "forest_load_s",
+        "clutch_over_bitserial_modeled", "gbdt", "reload_predict_s",
+        "defrag_predict_s", "launches", "max_memory_allocated_gb",
+        "phase_s")}, "jobs": jobs}
 
 
 # --------------------------------------------------------------------- #
@@ -3160,6 +3496,12 @@ def main() -> int:
     for row in rows:
         row["launches"] += scounts[row["name"]]
     log(f"phase 12: serving ok in {report['serving']['phase_s']:.1f} s")
+    free(torch)
+    mcounts = run_machine_path(torch, report)
+    for row in rows:
+        row["launches"] += mcounts[row["name"]]
+    log(f"phase 13: machine backend ok in "
+        f"{report['machine']['phase_s']:.1f} s")
 
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)
@@ -3170,6 +3512,8 @@ def main() -> int:
     print("phase11 " + json.dumps(lineitem_summary(report["lineitem"])),
           flush=True)
     print("phase12 " + json.dumps(serving_summary(report["serving"])),
+          flush=True)
+    print("phase13 " + json.dumps(machine_summary(report["machine"])),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

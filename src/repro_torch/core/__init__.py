@@ -1,1 +1,2 @@
-"""Framework-neutral NumPy vocabulary (chunk plans, architecture names)."""
+"""The command-level PuD model (machine, device, scheduler, cost model),
+chunked temporal coding, Clutch and the bit-serial baseline."""

@@ -1,45 +1,64 @@
-"""`PudSession`: the port's front door, running every job on the card.
+"""`PudSession`: the port's front door, with the reference's two backends.
 
     from repro_torch.pud import PudSession, Q1, Q2
 
-    session = PudSession()                       # device="cuda"
-    table = session.create_table(t)              # LUTs built on the card
+    session = PudSession(num_devices=2)          # device="cuda"
+    table = session.create_table(t)              # loaded into bank state
     job = session.query(table, Q2(fi=0, x0=1, x1=9, fj=1, y0=2, y1=8))
     job.result                                   # == NumPy reference
-    preds = session.predict(session.load_forest(f), X).result
+    job.stats.overlapped_ns                      # modeled DRAM time
+    fast = session.query(table, Q1(fi=0, x0=1, x1=9), backend="fused")
+    fast.wallclock_ns                            # the card's kernels
 
-The reference package's session drives a NumPy DRAM simulator, a
-placement planner and a trace verifier, and hands its fused backend a
-layout recipe.  This session has one backend, the card: it lays each
-resource out as the reference's executors would (same shard count, same
-chunk plans, same LUT bytes) and runs jobs through
-:class:`~repro_torch.kernels.fused_session.FusedTableExec` and
-:class:`~repro_torch.kernels.fused_session.FusedGbdtExec`.
+Two backends, one contract (the reference package's ``pud/session.py``):
 
-``num_devices``, ``arch`` and ``num_rows`` describe the reference's
-PuD fleet and are kept only as layout parameters: tables get
-``num_devices * shards_per_device`` record shards, and a fixed table's
-chunk count is the paper's (:data:`~repro_torch.apps.predicate.
-PAPER_PREDICATE_CHUNKS`, :data:`~repro_torch.apps.gbdt.
-PAPER_GBDT_CHUNKS`), raised until the LUTs fit a ``num_rows``-row
-subarray.  The session runs on one card.
+* ``backend="machine"`` (the default) runs each job on the command-level
+  PuD model (:mod:`repro_torch.core`) whose bank state lives on the
+  card: :class:`~repro_torch.core.device.PuDDevice` fleets, the
+  :class:`~repro_torch.pud.planner.Planner`'s bank lifetimes (a
+  placement that does not fit is ``"queued"``; cold resources are
+  evicted and rebuilt on use; defragmentation relocates groups by
+  RowClone), and the executors of :mod:`repro_torch.pud.executors`.  A
+  job returns its barrier-aware ``stats`` and scheduled ``timeline``:
+  modeled DRAM time for ``sys_cfg`` (DDR4 on ``cost.DESKTOP``), never a
+  measurement of the card.
+* ``backend="fused"`` runs the same jobs through the card's hand-written
+  kernels (:class:`~repro_torch.kernels.fused_session.FusedTableExec`,
+  :class:`~repro_torch.kernels.fused_session.FusedGbdtExec`) and returns
+  the measured ``wallclock_ns`` (clock stopped after
+  ``torch.cuda.synchronize()``) with ``stats`` and ``timeline`` None.
+
+Results are bit-exact between the backends.  ``backend=`` on a job
+overrides the session's.  A machine session admits every resource
+through the planner at creation, and its fused jobs build from the
+machine executor's ``fused_config()``; a fused session lays resources
+out for the kernels alone (same shard count and chunk plans, no bank
+capacity) and admits one to the planner only at its first machine job,
+which raises the planner's queued or ``MemoryError`` text when it does
+not fit.
+
+``device`` is the card unless the caller names another; with no CUDA
+and no ``device`` the constructor raises.  ``device="cpu"`` runs the
+model's state and every kernel's plain version on the host (what the
+CPU tests use).
 
 Adaptive representation: ``create_table(..., representation="auto")``
 and ``load_forest``'s counterpart let
 :func:`~repro_torch.pud.planner.choose_representation` give each column
-its own ``(n_bits, num_chunks)``, priced on the DRAM model under
-``sys_cfg`` (which is used for nothing else) and never slower or larger
-than the fixed default.  ``handle.representation`` reports the plans and
-the LUT rows saved; :meth:`PudSession.recode_column` re-encodes one
-column by evicting the table, whose next job rebuilds its LUT on the
-card.
+its own ``(n_bits, num_chunks)``; ``handle.representation`` reports the
+plans; :meth:`PudSession.recode_column` re-encodes one column by
+evicting the resource, whose next job rebuilds it.
+
+Left out: the reference's ``verify`` knob and job linting (its static
+verifier, pudlint, is not ported; the reference's default is
+``"off"``).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -47,34 +66,59 @@ import torch
 from repro_torch.apps.gbdt import PAPER_GBDT_CHUNKS
 from repro_torch.apps.predicate import PAPER_PREDICATE_CHUNKS, Table, fit_chunks
 from repro_torch.core import cost
+from repro_torch.core.device import PuDDevice
 from repro_torch.core.encoding import ColumnPlan, column_footprint_rows
 from repro_torch.core.machine import NUM_RESERVED, PuDArch
+from repro_torch.core.scheduler import (
+    ChannelScheduler,
+    Timeline,
+    rekey_stream,
+)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fused_session import FusedGbdtExec, FusedTableExec
 
+from .executors import GbdtBatchExecutor, QueryBatchExecutor
 from .planner import (
+    Planner,
     _default_uniform_chunks,
     choose_forest_plan,
     choose_representation,
 )
 from .queries import Q1, Q2, Q3, Q4, Q5, Compound
 
+BACKENDS = ("machine", "fused")
+
 
 @dataclass
 class JobResult:
-    """One job's outcome: the result, and the measured wall-clock from
-    submission to the card's last kernel (clock stopped after
-    ``torch.cuda.synchronize()``)."""
+    """One job's outcome: the merged result, plus the cost accounting of
+    the backend that ran it.  Machine jobs carry the modeled pipeline
+    ``stats`` (:class:`~repro_torch.apps.pipeline.PipelineStats`) and
+    the scheduled ``timeline``; fused jobs carry the measured
+    ``wallclock_ns`` instead -- ``backend`` says which."""
 
     result: Any
-    wallclock_ns: float
+    stats: Any = None
+    timeline: Timeline | None = None
+    wallclock_ns: float | None = None
+    backend: str = "machine"
+
+    @property
+    def makespan_ns(self) -> float:
+        """Modeled makespan of a machine job; the measured wall-clock of
+        a fused one."""
+        if self.stats is not None:
+            return self.stats.makespan_ns
+        return self.wallclock_ns
 
 
 @dataclass
 class ResourceHandle:
-    """Handle to a session resource; ``status`` is ``"ready"`` (device
-    tensors built), ``"evicted"`` (rebuilt on next use) or
-    ``"dropped"``."""
+    """Handle to a session resource.  ``status``: on a machine session
+    the planner's ``"ready"`` / ``"queued"`` / ``"evicted"`` /
+    ``"failed"``; on a fused session ``"ready"`` (device tensors built)
+    or ``"evicted"`` (rebuilt on next use); ``"dropped"`` once
+    released."""
 
     name: str
     session: "PudSession" = field(repr=False)
@@ -102,33 +146,74 @@ class ForestHandle(ResourceHandle):
     depth: int = 0
 
 
+@dataclass
+class _Recipe:
+    """How to build a resource for each backend: ``machine`` places
+    bank groups and returns the executor; ``fused`` returns the kernel
+    layout (the keyword arguments of the fused executor, without the
+    device)."""
+
+    kind: str                       # "table" | "forest"
+    machine: Callable[[], Any]
+    fused: Callable[[], dict]
+    pinned: bool = False
+
+
 class PudSession:
-    """Declarative tables and forests whose jobs run on one card.
+    """Declarative tables and forests over a fleet of PuD devices, run on
+    the machine model or on the card's kernels (see the module
+    docstring).  ``num_devices``, ``arch``, ``num_rows`` and ``seed``
+    describe the modeled fleet (``seed + 1000 * i`` seeds device ``i``'s
+    power-up state); ``hosts`` is its host model (``"shared"`` or
+    ``"per-device"``)."""
 
-    ``device`` defaults to the card; with no CUDA and no ``device`` the
-    constructor raises.  ``device="cpu"`` runs every kernel's plain
-    PyTorch version (what the CPU tests use)."""
-
-    def __init__(self, sys_cfg=cost.DESKTOP, num_devices: int = 1,
-                 arch: PuDArch = PuDArch.MODIFIED, num_rows: int = 1024,
+    def __init__(self, sys_cfg=cost.DESKTOP, devices=None,
+                 num_devices: int = 1, arch: PuDArch = PuDArch.MODIFIED,
+                 num_rows: int = 1024, seed: int | None = 0,
+                 hosts: str = "shared", backend: str = "machine",
                  device=None) -> None:
-        if num_devices < 1:
+        if hosts not in ("shared", "per-device"):
+            raise ValueError(
+                f"hosts must be 'shared' or 'per-device', got {hosts!r}")
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be 'machine' or 'fused', got {backend!r}")
+        if devices is None and num_devices < 1:
             raise ValueError("need at least one device")
         self.device = resolve_device(device)
-        #: the DRAM platform ``representation="auto"`` prices plans on
         self.sys_cfg = sys_cfg
-        self.num_devices = num_devices
-        self.arch = arch
-        self.num_rows = num_rows
-        # name -> (kind, build closure); name -> built executor
-        self._recipes: dict[str, tuple[str, Any]] = {}
-        self._execs: dict[str, Any] = {}
+        #: default backend of jobs; ``backend=`` on a job overrides it
+        self.backend = backend
+        self.hosts = hosts
+        if devices is not None:
+            self.devices = list(devices)
+            archs = {d.arch for d in self.devices}
+            if len(archs) != 1:
+                raise ValueError(f"devices disagree on arch: {archs}")
+            self.arch = next(iter(archs))
+        else:
+            self.arch = arch
+            self.devices = [
+                PuDDevice.from_system(sys_cfg, arch, num_rows=num_rows,
+                                      device=self.device)
+                for _ in range(num_devices)
+            ]
+            for i, d in enumerate(self.devices):
+                d._seed = None if seed is None else seed + 1000 * i
+        if not self.devices:
+            raise ValueError("need at least one device")
+        self.num_devices = len(self.devices)
+        self.num_rows = min(d.num_rows for d in self.devices)
+        self.planner = Planner(self.devices)
+        self._recipes: dict[str, _Recipe] = {}
+        # fused executors by resource name (dropped on drop/evict)
+        self._fused: dict[str, Any] = {}
         self._auto = 0
         # Adaptive representation, by resource name: a table's data, its
         # per-column ColumnPlans (a list recode_column edits in place;
         # absent for a fixed table until its first recode) and an auto
-        # forest's threshold plan.  A table's build closure reads its
-        # plans LATE, so the rebuild after a recode lays the new ones out.
+        # forest's threshold plan.  Build closures read the plans LATE,
+        # so the rebuild after a recode lays the new ones out.
         self._tables: dict[str, Any] = {}
         self._plans: dict[str, list] = {}
         self._forest_plans: dict[str, ColumnPlan] = {}
@@ -140,27 +225,31 @@ class PudSession:
     def _status(self, name: str) -> str:
         if name not in self._recipes:
             return "dropped"
-        return "ready" if name in self._execs else "evicted"
+        if self.backend == "machine":
+            return self.planner.resources[name].state
+        return "ready" if name in self._fused else "evicted"
 
     # ------------------------------------------------------------------ #
     # Resources
     # ------------------------------------------------------------------ #
     def create_table(self, data, name: str | None = None,
                      n_bits: int | None = None,
-                     shards_per_device: int = 2,
+                     shards_per_device: int = 2, method: str = "clutch",
                      num_chunks: int | None = None,
-                     representation: str = "fixed",
-                     headroom: int = 0) -> TableHandle:
-        """Build a table's stacked LUT on the device.  ``data`` is a
-        :class:`~repro_torch.apps.predicate.Table`, or a ``[records,
-        features]`` integer array with ``n_bits`` giving the width.
-        Records split into ``num_devices * shards_per_device`` shards.
+                     cols_per_bank: int = 65536, channels="auto",
+                     representation: str = "fixed", headroom: int = 0,
+                     pinned: bool = False) -> TableHandle:
+        """Register a table.  ``data`` is a :class:`~repro_torch.apps.
+        predicate.Table`, or a ``[records, features]`` integer array with
+        ``n_bits`` giving the width.  Records shard across devices, then
+        across ``shards_per_device`` channel-spread bank groups per
+        device (``method``: ``"clutch"`` or ``"bitserial"`` engines).
 
-        ``representation="auto"`` gives each column the ``(n_bits,
-        num_chunks)`` with the least probed makespan for its observed
-        values (plus ``headroom`` guard bits), never slower or larger
-        than the fixed default; ``"fixed"`` keeps the declared width and
-        one chunk count (``num_chunks`` or the paper's)."""
+        ``representation="auto"`` (clutch only) gives each column the
+        ``(n_bits, num_chunks)`` with the least probed makespan for its
+        observed values (plus ``headroom`` guard bits), never slower or
+        larger than the fixed default; ``"fixed"`` keeps the declared
+        width and one chunk count (``num_chunks`` or the paper's)."""
         if representation not in ("fixed", "auto"):
             raise ValueError(
                 f"representation must be 'fixed' or 'auto', "
@@ -179,69 +268,97 @@ class PudSession:
         name = name or self._auto_name("table")
         self._check_new(name)
         if representation == "auto":
-            plans = choose_representation(
+            if method != "clutch":
+                raise ValueError(
+                    "representation='auto' requires method='clutch' "
+                    "(bit-serial tables have no chunk plan to optimize)")
+            self._plans[name] = choose_representation(
                 data, self.arch, num_rows=self.num_rows,
                 sys_cfg=self.sys_cfg, headroom=headroom,
                 num_chunks=num_chunks)
-            chunks = max(p.num_chunks for p in plans)
-        else:
-            plans = None
-            chunks = fit_chunks(
-                data.n_bits, len(data.features), self.arch,
-                num_chunks or PAPER_PREDICATE_CHUNKS[(data.n_bits,
-                                                      self.arch)],
-                self.num_rows)
-        shards = self.num_devices * shards_per_device
+        self._tables[name] = data
 
-        def build():
+        def machine():
             # the plan set is read here, not captured: recode_column
             # changes it and rebuilds through this closure
             plans = self._plans.get(name)
-            return FusedTableExec(
-                data, num_shards=shards,
-                num_chunks=chunks if plans is None
-                else max(p.num_chunks for p in plans),
-                plans=plans, device=self.device)
+            return QueryBatchExecutor(
+                data, self.arch, self.devices,
+                shards_per_device=shards_per_device, method=method,
+                num_chunks=num_chunks, cols_per_bank=cols_per_bank,
+                channels=channels, hosts=self.hosts,
+                plans=tuple(plans) if plans is not None else None)
 
-        self._tables[name] = data
-        if plans is not None:
-            self._plans[name] = plans
-        self._admit(name, "table", build)
+        def fused() -> dict:
+            # QueryBatchExecutor.fused_config without placing anything
+            if method != "clutch":
+                raise TypeError(
+                    "the fused backend supports the clutch method only "
+                    "(bit-serial tables have no chunk plan)")
+            plans = self._plans.get(name)
+            cfg = {"table": data,
+                   "num_shards": self.num_devices * shards_per_device}
+            if plans is None:
+                cfg["num_chunks"] = fit_chunks(
+                    data.n_bits, len(data.features), self.arch,
+                    num_chunks or PAPER_PREDICATE_CHUNKS[(data.n_bits,
+                                                          self.arch)],
+                    self.num_rows)
+            else:
+                cfg["num_chunks"] = max(p.num_chunks for p in plans)
+                cfg["plans"] = tuple(plans)
+            return cfg
+
+        self._admit(name, _Recipe("table", machine, fused, pinned))
         return TableHandle(name=name, session=self,
                            num_records=data.num_records, n_bits=data.n_bits)
 
     def load_forest(self, forest, name: str | None = None,
+                    groups_per_device: int = 2, banks_per_group: int = 4,
                     num_chunks: int | None = None,
-                    representation: str = "fixed",
-                    headroom: int = 0) -> ForestHandle:
-        """Put a forest's threshold LUT and one-hot masks on the device,
-        at ``num_chunks`` or the paper's chunk count.
+                    channels="auto", replicate: str = "rowclone",
+                    representation: str = "fixed", headroom: int = 0,
+                    pinned: bool = False) -> ForestHandle:
+        """Register an oblivious forest: thresholds and one-hot masks
+        replicated into ``groups_per_device`` channel-spread groups of
+        ``banks_per_group`` banks on every device (``replicate=
+        "rowclone"`` host-loads each channel's first replica and clones
+        the rest in-DRAM; ``"host"`` loads every replica).
         ``representation="auto"`` sizes the threshold LUT to the
         observed thresholds (:func:`~repro_torch.pud.planner.
-        choose_forest_plan`, priced with the ``>``-only probe inference
-        issues)."""
+        choose_forest_plan`)."""
         if representation not in ("fixed", "auto"):
             raise ValueError(
                 f"representation must be 'fixed' or 'auto', "
                 f"got {representation!r}")
         name = name or self._auto_name("forest")
         self._check_new(name)
-        plan = None
         if representation == "auto":
-            plan = choose_forest_plan(
+            self._forest_plans[name] = choose_forest_plan(
                 forest, self.arch, num_rows=self.num_rows,
                 sys_cfg=self.sys_cfg, headroom=headroom,
                 num_chunks=num_chunks)
-        chunks = plan.num_chunks if plan is not None else (
-            num_chunks or PAPER_GBDT_CHUNKS[forest.n_bits])
 
-        def build():
-            return FusedGbdtExec(forest, num_chunks=chunks, plan=plan,
-                                 device=self.device)
+        def machine():
+            return GbdtBatchExecutor(
+                forest, self.arch, self.devices,
+                groups_per_device=groups_per_device,
+                banks_per_group=banks_per_group, num_chunks=num_chunks,
+                channels=channels, hosts=self.hosts,
+                replicate=replicate,
+                plan=self._forest_plans.get(name))
 
-        if plan is not None:
-            self._forest_plans[name] = plan
-        self._admit(name, "forest", build)
+        def fused() -> dict:
+            # GbdtBatchExecutor.fused_config without placing anything
+            plan = self._forest_plans.get(name)
+            cfg = {"forest": forest, "num_chunks": plan.num_chunks
+                   if plan is not None
+                   else num_chunks or PAPER_GBDT_CHUNKS[forest.n_bits]}
+            if plan is not None:
+                cfg["plan"] = plan
+            return cfg
+
+        self._admit(name, _Recipe("forest", machine, fused, pinned))
         return ForestHandle(name=name, session=self,
                             num_trees=forest.num_trees, depth=forest.depth)
 
@@ -249,26 +366,45 @@ class PudSession:
         if name in self._recipes:
             raise ValueError(f"resource {name!r} already exists")
 
-    def _admit(self, name: str, kind: str, build) -> None:
-        self._recipes[name] = (kind, build)
+    def _admit(self, name: str, recipe: _Recipe) -> None:
+        """A machine session hands the resource to the planner (placed,
+        or queued for capacity); a fused session builds its kernel
+        layout now."""
+        self._recipes[name] = recipe
         try:
-            self._execs[name] = build()
+            if self.backend == "machine":
+                self.planner.admit(name, recipe.kind, recipe.machine,
+                                   pinned=recipe.pinned)
+            else:
+                self._fused_exec(name, recipe.kind)
         except Exception:
             # a recipe that cannot build is the caller's error: forget
             # it, so the name stays usable
-            self.drop(ResourceHandle(name, self))
+            self._forget(name)
             raise
 
-    def drop(self, handle: ResourceHandle) -> None:
-        """Release a resource and free its device tensors."""
-        for d in (self._recipes, self._execs, self._tables, self._plans,
+    def _forget(self, name: str) -> None:
+        for d in (self._recipes, self._fused, self._tables, self._plans,
                   self._forest_plans):
-            d.pop(handle.name, None)
+            d.pop(name, None)
+
+    def drop(self, handle: ResourceHandle) -> None:
+        """Release a resource: its banks coalesce back into each
+        device's free map (the admission queue then drains FIFO) and its
+        device tensors are freed."""
+        if self.backend == "machine" or \
+                handle.name in self.planner.resources:
+            self.planner.release(handle.name)
+        self._forget(handle.name)
 
     def evict(self, handle: ResourceHandle) -> None:
-        """Free a resource's device tensors now; the next job rebuilds
-        them."""
-        self._execs.pop(handle.name, None)
+        """Reclaim a resource's banks and device tensors now; its next
+        job rebuilds them."""
+        r = self.planner.resources.get(handle.name)
+        if self.backend == "machine" or (r is not None
+                                         and r.state == "ready"):
+            self.planner.evict(handle.name)
+        self._fused.pop(handle.name, None)
 
     # ------------------------------------------------------------------ #
     # Adaptive representation
@@ -278,9 +414,9 @@ class PudSession:
                       num_chunks: int | None = None) -> ColumnPlan:
         """Re-encode one column under a new ``(n_bits, num_chunks)``
         (omitted arguments keep the column's current value) and evict
-        the table: its next job rebuilds the LUT on the card with the
-        new plan.  A fixed table first gets declared-width plans for
-        every column.  Returns the new :class:`ColumnPlan`."""
+        the table: its next job rebuilds it with the new plan.  A fixed
+        table first gets declared-width plans for every column.
+        Returns the new :class:`ColumnPlan`."""
         name = handle.name
         table = self._tables.get(name)
         if table is None:
@@ -309,8 +445,8 @@ class PudSession:
                   else int(num_chunks))
         new = ColumnPlan(bits, chunks)
         plans[column] = new
-        # the reference subarray's row budget, checked here so a recode
-        # that cannot fit fails now, with the plan set rolled back
+        # the subarray's row budget, checked here so a recode that
+        # cannot fit fails now, with the plan set rolled back
         mult = 2 if self.arch is PuDArch.UNMODIFIED else 1
         need = 2 + 4 + 2 + mult * sum(p.rows_required for p in plans)
         budget = self.num_rows - NUM_RESERVED
@@ -320,15 +456,17 @@ class PudSession:
                 f"recode to {new} needs {need} rows > budget {budget} "
                 f"({self.num_rows}-row subarray); pick more chunks or "
                 "fewer bits")
-        self.evict(handle)
+        r = self.planner.resources.get(name)
+        if r is not None and r.state == "ready":
+            self.planner.evict(name)
+        self._fused.pop(name, None)
         return new
 
     def representation_report(self, handle: TableHandle) -> dict:
         """A table's active plans (``mode="auto"`` after the optimizer or
         a recode, ``"fixed"`` otherwise) and its LUT rows beside the
-        fixed uniform default's, in the reference subarray's rows
-        (complements counted on Unmodified PuD); ``saved_rows`` is the
-        difference."""
+        fixed uniform default's, in subarray rows (complements counted
+        on Unmodified PuD); ``saved_rows`` is the difference."""
         name = handle.name
         table = self._tables.get(name)
         if table is None:
@@ -360,60 +498,187 @@ class PudSession:
                 "fixed_lut_rows": fixed_total,
                 "saved_rows": fixed_total - total}
 
+    # ------------------------------------------------------------------ #
+    # Serving hooks (autoscaler knobs)
+    # ------------------------------------------------------------------ #
+    def set_host_lanes(self, k: int) -> None:
+        """Re-provision the modeled host's merge lanes; takes effect on
+        the next scheduled job."""
+        from dataclasses import replace
+
+        if k < 1:
+            raise ValueError(f"host_lanes must be >= 1, got {k}")
+        self.sys_cfg = replace(self.sys_cfg, host_lanes=k)
+
+    def set_hosts(self, mode: str) -> None:
+        """Switch the fleet host model (``"shared"`` / ``"per-device"``)
+        for later jobs; ready executors are re-pointed in place."""
+        if mode not in ("shared", "per-device"):
+            raise ValueError(
+                f"hosts must be 'shared' or 'per-device', got {mode!r}")
+        self.hosts = mode
+        for r in self.planner.resources.values():
+            if r.executor is not None:
+                r.executor.hosts = mode
+
+    # ------------------------------------------------------------------ #
+    # Executors
+    # ------------------------------------------------------------------ #
     def resource_kind(self, name: str) -> str | None:
         """``"table"`` or ``"forest"`` for a resource of this session;
         ``None`` for a name it does not hold (unknown or dropped)."""
         recipe = self._recipes.get(name)
-        return None if recipe is None else recipe[0]
+        return None if recipe is None else recipe.kind
+
+    def _recipe(self, name: str, kind: str | None) -> _Recipe:
+        recipe = self._recipes.get(name)
+        if recipe is None:
+            raise KeyError(f"unknown resource {name!r} "
+                           "(dropped, or from another session?)")
+        if kind is not None and recipe.kind != kind:
+            raise TypeError(
+                f"resource {name!r} is a {recipe.kind}, not a {kind}")
+        return recipe
+
+    def _machine_exec(self, name: str, kind: str | None = None):
+        """The resource's machine executor: admitted to the planner on
+        first use in a fused session, reloaded if evicted; raises the
+        planner's text while it is queued or cannot be placed."""
+        recipe = self._recipe(name, kind)
+        if name not in self.planner.resources:
+            self.planner.admit(name, recipe.kind, recipe.machine,
+                               pinned=recipe.pinned)
+        return self.planner.ensure_ready(name)
+
+    def _fused_exec(self, name: str, kind: str | None = None, ex=None):
+        """The resource's fused executor, built on first use: from the
+        machine executor ``ex``'s ``fused_config()`` on a machine
+        session (the same layout both backends evaluate), from the
+        recipe's layout on a fused one."""
+        recipe = self._recipe(name, kind)
+        fx = self._fused.get(name)
+        if fx is None:
+            if self.backend == "machine":
+                ex = ex if ex is not None else self._machine_exec(name)
+                cfg = ex.fused_config()
+            else:
+                cfg = recipe.fused()
+            cls = FusedTableExec if recipe.kind == "table" else FusedGbdtExec
+            fx = self._fused[name] = cls(**cfg, device=self.device)
+        return fx
 
     def executor(self, handle: ResourceHandle):
-        """The resource's executor (rebuilt if evicted): LUT tensors,
-        ``launch_counts`` and, for forests, ``leaf_addrs``."""
-        recipe = self._recipes.get(handle.name)
-        if recipe is None:
-            raise KeyError(f"unknown resource {handle.name!r} "
-                           "(dropped, or from another session?)")
-        ex = self._execs.get(handle.name)
-        if ex is None:
-            ex = self._execs[handle.name] = recipe[1]()
-        return ex
-
-    def _typed(self, handle: ResourceHandle, kind: str):
-        recipe = self._recipes.get(handle.name)
-        if recipe is not None and recipe[0] != kind:
-            raise TypeError(
-                f"resource {handle.name!r} is a {recipe[0]}, not a {kind}")
-        return self.executor(handle)
+        """The resource's executor for the session's backend (rebuilt
+        if evicted): the machine executor (engines, ``wave_width``,
+        ``placements``, ``fused_config()``) or the fused one (LUT
+        tensors, ``launch_counts`` and, for forests, ``leaf_addrs``)."""
+        if self.backend == "machine":
+            return self._machine_exec(handle.name)
+        return self._fused_exec(handle.name)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _job_fused_exec(self, name: str, kind: str):
+        """A fused job's executor.  On a machine session the job first
+        readies the machine resource, as the reference's does (the
+        planner's use clock ticks; an evicted resource reloads; a queued
+        one raises)."""
+        ex = self._machine_exec(name, kind) if self.backend == "machine" \
+            else None
+        return self._fused_exec(name, kind, ex)
+
+    def _backend(self, backend: str | None) -> str:
+        backend = backend or self.backend
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be 'machine' or 'fused', got {backend!r}")
+        return backend
+
     # ------------------------------------------------------------------ #
     # Jobs
     # ------------------------------------------------------------------ #
     def query(self, table: TableHandle,
-              queries: "Q1 | Q2 | Q3 | Q4 | Q5 | Compound | Sequence"
-              ) -> JobResult:
+              queries: "Q1 | Q2 | Q3 | Q4 | Q5 | Compound | Sequence",
+              backend: str | None = None) -> JobResult:
         """Run one query, or a batch in order, against a table.  For a
         single query ``result`` is its value, for a batch the list of
-        values; each equals the query's NumPy ``reference``."""
+        values; each equals the query's NumPy ``reference`` on either
+        backend."""
         single = isinstance(queries, (Q1, Q2, Q3, Q4, Q5, Compound))
-        batch = [queries] if single else list(queries)
-        ex = self._typed(table, "table")
-        t0 = time.perf_counter()
-        results = ex.run([q.to_tuple() for q in batch])
-        self._sync()
-        wall = (time.perf_counter() - t0) * 1e9
+        batch = [q.to_tuple() for q in ([queries] if single
+                                        else list(queries))]
+        if self._backend(backend) == "fused":
+            fx = self._job_fused_exec(table.name, "table")
+            t0 = time.perf_counter()
+            results = fx.run(batch)
+            self._sync()
+            wall = (time.perf_counter() - t0) * 1e9
+            return JobResult(result=results[0] if single else results,
+                             wallclock_ns=wall, backend="fused")
+        ex = self._machine_exec(table.name, "table")
+        results = ex.run(batch)
+        timeline = ex.schedule(self.sys_cfg)
+        stats = ex.last_stats(self.sys_cfg, timeline=timeline)
         return JobResult(result=results[0] if single else results,
-                         wallclock_ns=wall)
+                         stats=stats, timeline=timeline)
 
-    def predict(self, forest: ForestHandle, X: np.ndarray) -> JobResult:
-        """Batched GBDT inference: one kernel launch for the batch;
-        ``result`` is the [B] float32 predictions."""
-        ex = self._typed(forest, "forest")
-        t0 = time.perf_counter()
+    def predict(self, forest: ForestHandle, X: np.ndarray,
+                backend: str | None = None) -> JobResult:
+        """Batched GBDT inference; ``result`` is the [B] float32
+        predictions in input order (one kernel launch for the batch on
+        the fused backend)."""
+        if self._backend(backend) == "fused":
+            fx = self._job_fused_exec(forest.name, "forest")
+            t0 = time.perf_counter()
+            preds = fx.infer(np.asarray(X))
+            self._sync()
+            wall = (time.perf_counter() - t0) * 1e9
+            return JobResult(result=preds, wallclock_ns=wall,
+                             backend="fused")
+        ex = self._machine_exec(forest.name, "forest")
         preds = ex.infer(np.asarray(X))
-        self._sync()
-        wall = (time.perf_counter() - t0) * 1e9
-        return JobResult(result=preds, wallclock_ns=wall)
+        timeline = ex.schedule(self.sys_cfg)
+        stats = ex.last_stats(self.sys_cfg, timeline=timeline)
+        return JobResult(result=preds, stats=stats, timeline=timeline)
+
+    # ------------------------------------------------------------------ #
+    # Introspection (the machine model)
+    # ------------------------------------------------------------------ #
+    def clear_traces(self, handle: ResourceHandle) -> None:
+        """Forget a resource's recorded command streams (e.g. LUT
+        loading, before reading raw traces or device schedules; job
+        timelines are already job-scoped)."""
+        for eng in self._machine_exec(handle.name).engines:
+            eng.sub.trace.clear()
+
+    def schedule(self) -> Timeline:
+        """Jointly scheduled timeline of every device's full recorded
+        streams (LUT loads and every job), device channels re-keyed into
+        per-device namespaces, host events on the session's host
+        model."""
+        stride = max(d.channels for d in self.devices)
+        streams = [
+            rekey_stream(st, di, stride,
+                         host=di if self.hosts == "per-device" else 0)
+            for di, d in enumerate(self.devices)
+            for st in d.streams()]
+        return ChannelScheduler(self.sys_cfg).schedule(streams)
+
+    def cost_summary(self) -> dict:
+        """Per-device cost summaries plus the federated makespan
+        (modeled for ``sys_cfg``)."""
+        per_dev = [d.cost_summary(self.sys_cfg) for d in self.devices]
+        fed = self.schedule()
+        return {
+            "devices": per_dev,
+            "time_scheduled_ns": fed.makespan_ns,
+            "time_device_ns": fed.device_span_ns,
+            "energy_nj": sum(s["energy_nj"] for s in per_dev),
+        }
+
+    def planner_stats(self) -> dict:
+        """Placement-planner counters (resource states, queue, defrag,
+        evictions, free-map shape per device)."""
+        return self.planner.stats()

@@ -17,12 +17,16 @@ preserved within a group) and runs each group as ONE session job --
 query requests become one query batch, predict requests concatenate
 their instances into one inference batch.
 
-Latency attribution: the port's session has one backend, the card, and
-its jobs carry no scheduled timeline, only the batch's measured
-``wallclock_ns`` (the reference's fused contract).  Queries amortize it
-evenly across the batch, predicts proportionally to instance count, so
-attributed latencies always SUM to the measured batch wall-clock.
-``PudResponse.stats`` is always ``None``.
+Latency attribution: a machine-backend job carries its scheduled
+``stats``, so each request's latency is the modeled completion of its
+last pipeline wave -- queries through the executor's
+``last_wave_owners`` (a Q5 owns both its waves, a host-merged compound
+one wave per term), predicts through ``wave_width`` (the wave that
+finishes the request's instance span).  A fused job carries only the
+batch's measured ``wallclock_ns``: queries amortize it evenly across
+the batch, predicts proportionally to instance count, so attributed
+latencies SUM to the measured batch wall-clock.  ``PudResponse.stats``
+is the job's ``stats`` (``None`` for a fused job).
 
 Deadlines: a request may carry ``deadline_ns``; at flush its attributed
 latency is checked against it and an expired request fails alone
@@ -82,8 +86,8 @@ class PudRequest:
 
 @dataclass
 class PudResponse:
-    """One request's outcome: its result, the batch's ``stats`` (always
-    ``None`` here: the card's jobs have no scheduler stats), its
+    """One request's outcome: its result, the batch's ``stats`` (``None``
+    for a fused job, which has no scheduler stats), its
     ``batch_size`` peers and its latency attribution.  ``ok`` is
     ``False`` for a request that missed its ``deadline_ns`` (the batch
     still executed; the result is withheld and ``error`` says by how
@@ -112,8 +116,8 @@ class PudService:
 
     session: PudSession
     _pending: dict[int, PudRequest] = field(default_factory=dict)
-    #: JobResult of the most recent :meth:`_run_batch` execution (its
-    #: measured ``wallclock_ns``), for the batcher and the serving loop.
+    #: JobResult of the most recent :meth:`_run_batch` execution, for
+    #: the batcher and the serving loop.
     last_job: Any = field(default=None, repr=False)
 
     def submit(self, request: PudRequest) -> None:
@@ -177,7 +181,7 @@ class PudService:
             self.last_job = job
             lats = self._query_latencies(handle, job, len(reqs))
             return [PudResponse(rid=r.rid, result=job.result[i],
-                                stats=None, latency_ns=lats[i],
+                                stats=job.stats, latency_ns=lats[i],
                                 batch_size=len(reqs))
                     for i, r in enumerate(reqs)]
         sizes = [int(np.asarray(r.X).shape[0]) for r in reqs]
@@ -190,25 +194,51 @@ class PudService:
         for r, sz, lat in zip(reqs, sizes, lats):
             out.append(PudResponse(
                 rid=r.rid, result=job.result[off:off + sz],
-                stats=None, latency_ns=lat,
+                stats=job.stats, latency_ns=lat,
                 batch_size=len(reqs)))
             off += sz
         return out
 
     def _query_latencies(self, handle: ResourceHandle, job,
                          n: int) -> list[float]:
-        """Per-request completion times for a query batch: an even share
-        of the measured batch wall-clock (shares sum to the batch
-        total)."""
-        return [job.wallclock_ns / n] * n
+        """Per-request completion times for a query batch: the last
+        owned wave's ``wave_done_ns`` (machine), or an even share of
+        the measured batch wall-clock (fused -- shares sum to the
+        batch total)."""
+        if job.stats is None:
+            return [job.wallclock_ns / n] * n
+        done = job.stats.wave_done_ns
+        owners = getattr(self.session.executor(handle),
+                         "last_wave_owners", [])
+        if len(owners) != len(done):
+            # ownership map out of step with the timeline (foreign
+            # executor): fall back to the batch makespan for everyone
+            return [float(job.makespan_ns)] * n
+        lats = [0.0] * n
+        for w, qi in enumerate(owners):
+            lats[qi] = max(lats[qi], float(done[w]))
+        return lats
 
     def _predict_latencies(self, handle: ResourceHandle, job,
                            sizes: list[int]) -> list[float]:
         """Per-request completion times for a concatenated inference
-        batch: the batch wall-clock split proportionally to instance
-        counts (shares sum to the batch total)."""
+        batch: the wave that finishes the request's instance span
+        (machine), or the batch wall-clock split proportionally to
+        instance counts (fused -- shares sum to the batch total)."""
         total = sum(sizes) or 1
-        return [job.wallclock_ns * sz / total for sz in sizes]
+        if job.stats is None:
+            return [job.wallclock_ns * sz / total for sz in sizes]
+        done = job.stats.wave_done_ns
+        width = getattr(self.session.executor(handle), "wave_width", 0)
+        if not done or width <= 0:
+            return [float(job.makespan_ns)] * len(sizes)
+        lats: list[float] = []
+        off = 0
+        for sz in sizes:
+            last_wave = (off + max(sz, 1) - 1) // width
+            lats.append(float(done[min(last_wave, len(done) - 1)]))
+            off += sz
+        return lats
 
     @staticmethod
     def _deadline_checked(resp: PudResponse,

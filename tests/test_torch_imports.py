@@ -49,6 +49,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "train.checkpoint", "train.straggler", "train.loop",
               "launch.train", "dist.compression", "dist.ddp",
               "core.machine", "core.clutch", "core.cost", "core.scheduler",
+              "core.encoding", "core.bitserial", "core.device",
+              "apps.pipeline", "apps.predicate", "apps.gbdt",
+              "pud.executors", "pud.session",
               "pud.planner", "serve.pud_service", "serve.arrivals",
               "serve.admission", "serve.batcher", "serve.loop"):
         assert f"repro_torch.{m}" in mods
@@ -90,13 +93,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     t = Table.generate(100, 8, num_features=2, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        PudSession()
+        PudSession(backend="fused")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fused_session.FusedTableExec(t, num_shards=1, num_chunks=2)
     f = ObliviousForest.random(4, 2, 2, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fused_session.FusedGbdtExec(f, num_chunks=1)
-    assert PudSession(device="cpu").device.type == "cpu"
+    assert PudSession(backend="fused", device="cpu").device.type == "cpu"
     logits = np.zeros((2, 5), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.sample_threshold_mask(logits, np.zeros(2, np.float32))

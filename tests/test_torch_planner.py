@@ -106,14 +106,16 @@ def test_load_vector_matches_reference(arch, n_bits, banks, n, complement,
     shape = (banks, n) if data.draw(st.sampled_from([0, 1])) else (n,)
     vals = rng.integers(0, 1 << n_bits, shape, dtype=np.uint64)
     subs = (jmach.BankedSubarray(banks, 4096 + 8, 96, arch[0], seed=n),
-            tmach.BankedSubarray(banks, 4096 + 8, 96, arch[1], seed=n))
+            tmach.BankedSubarray(banks, 4096 + 8, 96, arch[1], seed=n,
+                                 device="cpu"))
     jl = jenc.load_vector(subs[0], vals, jenc.make_plan(n_bits, c),
                           complement=complement)
     tl = tenc.load_vector(subs[1], vals, tenc.make_plan(n_bits, c),
                           complement=complement)
     assert (tl.plan.widths, tl.cp, tl.complement) == \
         (jl.plan.widths, jl.cp, jl.complement)
-    np.testing.assert_array_equal(subs[1].state, subs[0].state)
+    np.testing.assert_array_equal(
+        subs[1].state.numpy().view(np.uint32), subs[0].state)
     assert _entries(subs[1].trace) == _entries(subs[0].trace)
 
 
@@ -131,7 +133,8 @@ def test_clutch_engine_matches_reference(arch, n_bits, n, clamp, data):
     mx = (1 << n_bits) - 1
     vals = np.random.default_rng(n).integers(0, mx + 1, n, dtype=np.uint64)
     subs = (jmach.BankedSubarray(1, 2 * ((1 << n_bits) + 64), 96, arch[0]),
-            tmach.BankedSubarray(1, 2 * ((1 << n_bits) + 64), 96, arch[1]))
+            tmach.BankedSubarray(1, 2 * ((1 << n_bits) + 64), 96, arch[1],
+                                 device="cpu"))
     if data.draw(st.sampled_from([False, True])):
         kws = ({"num_chunks": c}, {"num_chunks": c})
     else:
@@ -158,7 +161,8 @@ def test_clutch_engine_matches_reference(arch, n_bits, n, clamp, data):
             assert (rt.row, rt.pud_ops) == (rj.row, rj.pud_ops), (op, x)
             np.testing.assert_array_equal(engines[1].read_bitmap(rt.row),
                                           engines[0].read_bitmap(rj.row))
-    np.testing.assert_array_equal(subs[1].state, subs[0].state)
+    np.testing.assert_array_equal(
+        subs[1].state.numpy().view(np.uint32), subs[0].state)
     assert _entries(subs[1].trace) == _entries(subs[0].trace)
     assert subs[1].trace.segments == [
         tmach.Segment(s.sid, s.label, s.after, s.after_host)

@@ -78,7 +78,7 @@ def sessions():
     js.create_table(_data(), name="events", n_bits=N_BITS,
                     cols_per_bank=COLS)
     js.load_forest(forest, name="rank")
-    ts = PudSession(num_devices=2, device="cpu")
+    ts = PudSession(backend="fused", num_devices=2, device="cpu")
     ts.create_table(_data(), name="events", n_bits=N_BITS)
     ts.load_forest(convert.forest(forest.feature_idx, forest.thresholds,
                                   forest.leaves, forest.n_bits,
@@ -406,7 +406,7 @@ def test_serving_stack_refuses_the_cpu_unless_asked(monkeypatch):
     session a service needs cannot be made."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        TS.PudService(PudSession())
+        TS.PudService(PudSession(backend="fused"))
 
 
 # --------------------------------------------------------------------- #

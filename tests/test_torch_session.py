@@ -53,7 +53,7 @@ def test_query_matches_reference_machine_session(n_bits, shards_per_device,
     js = JSession(num_devices=1)
     jh = js.create_table(t, name="t", shards_per_device=shards_per_device)
     want = js.query(jh, _queries(JQ, mx)).result
-    ts = PudSession(device="cpu")
+    ts = PudSession(backend="fused", device="cpu")
     tt = convert.table(t.n_bits, t.features)
     th = ts.create_table(tt, name="t", shards_per_device=shards_per_device)
     queries = _queries(TQ, mx)
@@ -105,7 +105,7 @@ def test_compound_of_many_terms_matches_reference_machine_session(k):
     jterms, jops = _many_terms(JQ, 255, k, np.random.default_rng(k))
     want = js.query(jh, [JQ.Compound(jterms, jops),
                          JQ.Compound(jterms, jops, count=True)]).result
-    ts = PudSession(device="cpu")
+    ts = PudSession(backend="fused", device="cpu")
     th = ts.create_table(convert.table(t.n_bits, t.features), name="t")
     terms, ops = _many_terms(TQ, 255, k, np.random.default_rng(k))
     got = ts.query(th, [TQ.Compound(terms, ops),
@@ -124,7 +124,7 @@ def test_predict_matches_reference_machine_session(n_bits, depth, trees):
     js = JSession(num_devices=1)
     jh = js.load_forest(f, name="f", banks_per_group=2)
     want = js.predict(jh, X).result
-    ts = PudSession(device="cpu")
+    ts = PudSession(backend="fused", device="cpu")
     tf = convert.forest(f.feature_idx, f.thresholds, f.leaves, f.n_bits,
                         f.num_features)
     th = ts.load_forest(tf, name="f")
@@ -148,7 +148,8 @@ def test_chunk_fit_matches_reference_when_rows_are_tight():
     t = JP.Table.generate(500, 16, num_features=8, seed=1)
     js = JSession(num_devices=2, num_rows=400)
     jh = js.create_table(t, name="t")
-    ts = PudSession(num_devices=2, num_rows=400, device="cpu")
+    ts = PudSession(backend="fused", num_devices=2, num_rows=400,
+                    device="cpu")
     th = ts.create_table(convert.table(t.n_bits, t.features), name="t")
     cfg = js.executor(jh).fused_config()
     ex = ts.executor(th)
@@ -159,7 +160,7 @@ def test_chunk_fit_matches_reference_when_rows_are_tight():
 
 def test_resource_lifetime_and_unported_options():
     t = convert.table(8, [np.arange(300) % 256, np.arange(300) % 7])
-    s = PudSession(device="cpu")
+    s = PudSession(backend="fused", device="cpu")
     h = s.create_table(t, name="t")
     q = TQ.Q1(fi=0, x0=10, x1=200)
     assert h.status == "ready"
@@ -238,7 +239,8 @@ def test_auto_table_matches_reference_machine_session(arch):
     ja = js.create_table(data, n_bits=12, name="auto",
                          representation="auto")
     jf = js.create_table(data, n_bits=12, name="fix", num_chunks=3)
-    ts = PudSession(num_devices=2, arch=arch[1], device="cpu")
+    ts = PudSession(backend="fused", num_devices=2, arch=arch[1],
+                    device="cpu")
     ta = ts.create_table(data, n_bits=12, name="auto",
                          representation="auto")
     tf = ts.create_table(data, n_bits=12, name="fix", num_chunks=3)
@@ -272,7 +274,8 @@ def test_auto_forest_matches_reference_machine_session(arch):
     X = rng.integers(0, 4096, size=(40, n_feat)).astype(np.uint64)
     js = JSession(num_devices=2, arch=arch[0])
     jh = js.load_forest(f, name="f", representation="auto")
-    ts = PudSession(num_devices=2, arch=arch[1], device="cpu")
+    ts = PudSession(backend="fused", num_devices=2, arch=arch[1],
+                    device="cpu")
     tf = convert.forest(f.feature_idx, f.thresholds, f.leaves, f.n_bits,
                         f.num_features)
     th = ts.load_forest(tf, name="f", representation="auto")
@@ -294,7 +297,8 @@ def test_recode_column_matches_reference_machine_session():
     table gets declared-width plans seeded first.  Reports follow the
     reference session's at each step."""
     data = _mixed_data()
-    js, ts = JSession(num_devices=2), PudSession(num_devices=2,
+    js, ts = JSession(num_devices=2), PudSession(backend="fused",
+                                                 num_devices=2,
                                                  device="cpu")
     jt = js.create_table(data, n_bits=12, name="t", representation="auto")
     tt = ts.create_table(data, n_bits=12, name="t", representation="auto")
@@ -343,7 +347,8 @@ def test_recode_column_matches_reference_machine_session():
 def test_recode_over_budget_rolls_back_as_the_reference_does(arch):
     data = np.stack([np.arange(8, dtype=np.uint64) % 4] * 3, axis=1)
     js = JSession(num_devices=1, num_rows=256, arch=arch[0])
-    ts = PudSession(num_devices=1, num_rows=256, arch=arch[1], device="cpu")
+    ts = PudSession(backend="fused", num_devices=1, num_rows=256,
+                    arch=arch[1], device="cpu")
     jt = js.create_table(data, n_bits=8, name="t", representation="auto")
     tt = ts.create_table(data, n_bits=8, name="t", representation="auto")
     old = list(ts._plans["t"])
@@ -361,7 +366,7 @@ def test_recode_over_budget_rolls_back_as_the_reference_does(arch):
 
 def test_auto_table_under_a_taken_name_keeps_the_first():
     data = _mixed_data(n=64)
-    s = PudSession(device="cpu")
+    s = PudSession(backend="fused", device="cpu")
     h = s.create_table(data, n_bits=12, name="t", representation="auto")
     plans = list(s._plans["t"])
     with pytest.raises(ValueError, match="already exists"):
