@@ -203,7 +203,39 @@ Phases (any failure exits non-zero; none is caught and passed over):
     power-up draw, upload and the profiler's spans, with the device
     time of its ``temporal_encode`` launches; bank-state bytes, peak
     memory) beside the modeled DDR4 ones (makespan, device
-    span, commands, energy, Clutch over bit-serial).
+    span, commands, energy, Clutch over bit-serial).  Its GBDT job runs
+    under ``verify="strict"``, its lint timed apart.
+14. Verified, autoscaled machine serving, last, after phase 13's
+    session is freed: a ``repro_torch.analysis.pudlint``
+    ``TraceCollector`` is installed before any of the phase's subarrays
+    exists; ``mutations.self_test()`` with its subarrays on the card
+    (every seeded class flagged with its code, the baselines clean);
+    ``PudSession(num_devices=16, arch=MODIFIED, verify="strict")`` on
+    ``cost.DESKTOP`` (on phase 13's 8 devices the table fills every bank
+    and the forest would evict it) holding phase 12's table at 2^25
+    records (2 shards a device: 512 banks, 4.29 GB of bank state) and
+    forest (``load_vector`` through
+    ``temporal_encode`` for both), whose load traces the collector
+    lints; the probe batch's modeled makespan gives the capacity and
+    the deadline, as ``benchmarks/serving_load.py`` derives them; one
+    Poisson point at 0.5x that capacity (phase 12's 40 arrivals a class)
+    served twice on the same arrivals by ``ServingLoop``, plain and with a
+    ``UtilizationAutoscaler`` that re-evaluates every job (the session's
+    config restored between).  Checks: every committed response of the
+    autoscaled run exact against NumPy (a seeded 8 of the plain run's),
+    every job linted strict, every dispatched resource's traces empty
+    after its dispatch, at least one decision and each one's
+    ``predicted_ns <= static_best_ns``, the collector's final drain
+    clean with a PL401 record for every dispatched request, and a
+    committed job's timeline made invalid two ways (``mutations.
+    mut_op_swap``, PL307; pin bytes on its first in-DRAM wave, the edit
+    of ``mut_clone_io``, PL306) raising ``PudLintError`` from
+    ``Timeline.verify``.  A ``phase14`` JSON line gives the card's
+    numbers (loads, bank-state bytes, peak memory, host seconds of each
+    job's lint, of the drains and of each autoscaler decision, phase
+    13's GBDT lint) beside the modeled ones (p50, p99, goodput and the
+    decisions on the loop's simulated clock of ``cost.DESKTOP``
+    makespans).
 
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
@@ -388,6 +420,14 @@ SERVE_SAMPLE = 8
 MACHINE_DEVICES = 8
 MACHINE_BATCH = 4096
 MACHINE_RECHECK = 512
+# phase 14: phase 12's table and forest in a machine session under
+# verify="strict", serving phase 12's mixes at 0.5x the capacity of its
+# own modeled probe makespan.  16 DESKTOP devices, not phase 13's 8: the
+# table fills 8 devices' 512 banks, so the forest would evict it at every
+# switch between them; on 16 it takes 32 of each device's 64 banks (still
+# 512 banks, 4.29 GB) and the forest 8
+VERIFY_DEVICES = 16
+VERIFY_LOAD_FRAC = 0.5
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -2402,6 +2442,17 @@ def serving_arrivals(Arr, rate_rps: float, deadline_ns: float, seed: int,
     return sorted(a + b, key=lambda x: x.arrive_ns)
 
 
+def probe_batch(Q, mx: int = 255) -> list:
+    """``serving_load.py``'s capacity probe: Q1, Q2, Q3 and Q5."""
+    return [Q.Q1(fi=0, x0=mx // 8, x1=mx // 2),
+            Q.Q2(fi=0, x0=mx // 8, x1=mx // 2, fj=1, y0=mx // 4,
+                 y1=3 * mx // 4),
+            Q.Q3(fi=1, x0=mx // 8, x1=mx // 2, fj=2, y0=mx // 4,
+                 y1=3 * mx // 4),
+            Q.Q5(fl=3, fk=2, fi=0, x0=mx // 8, x1=mx // 2, fj=1,
+                 y0=mx // 4, y1=3 * mx // 4)]
+
+
 def burst_cohorts(Arr, period_ns: float, deadline_ns: float,
                   seed: int) -> list:
     """``serving_load.py``'s synchronized cohorts: every ``period_ns``
@@ -2559,14 +2610,7 @@ def run_serving_path(torch, report) -> dict:
                lut_gb=ex.lut.numel() * 4 / 1e9)
 
     # capacity and deadline from the probe batch's measured wall-clock
-    mx = 255
-    probe = [Q.Q1(fi=0, x0=mx // 8, x1=mx // 2),
-             Q.Q2(fi=0, x0=mx // 8, x1=mx // 2, fj=1, y0=mx // 4,
-                  y1=3 * mx // 4),
-             Q.Q3(fi=1, x0=mx // 8, x1=mx // 2, fj=2, y0=mx // 4,
-                  y1=3 * mx // 4),
-             Q.Q5(fl=3, fk=2, fi=0, x0=mx // 8, x1=mx // 2, fj=1,
-                  y0=mx // 4, y1=3 * mx // 4)]
+    probe = probe_batch(Q)
     tbl = svc._handle("events", "query")
     warm = session.query(tbl, probe)
     for q, got in zip(probe, warm.result):
@@ -2938,7 +2982,14 @@ def run_machine_path(torch, report) -> dict:
                f"machine predictions {what}")
         return job, wall_s
 
+    # this job alone runs under verify="strict", its lint timed apart
+    # (``card_wall_s`` holds it)
+    lint_s: list = []
+    timed_lint(session, lint_s)
+    session.verify = "strict"
     job, wall_s = predict(fh, batch, "")
+    session.verify = "off"
+    expect(len(lint_s) == 1, f"{len(lint_s)} lints of the GBDT job")
     fused = session.predict(fh, X, backend="fused")
     expect(np.array_equal(fused.result, job.result),
            "machine predictions differ from fused")
@@ -2951,7 +3002,8 @@ def run_machine_path(torch, report) -> dict:
            f"{waves} waves x {per_inst}")
     rep["gbdt"] = {"instances": batch, "waves": waves,
                    "pud_ops_per_instance": per_inst,
-                   "card_wall_s": wall_s,
+                   "card_wall_s": wall_s, "lint_s": lint_s[0],
+                   "scheduled_waves": len(job.timeline.waves),
                    "fused_wall_ms": fused.wallclock_ns / 1e6,
                    **modeled(job, sys_cfg)}
     del fex
@@ -2983,6 +3035,22 @@ def run_machine_path(torch, report) -> dict:
     return counts
 
 
+def timed_lint(session, into: list, streams: dict | None = None) -> None:
+    """Wrap ``session._lint_job``: each call's host seconds go to
+    ``into``, and each job's linted streams to ``streams`` by the id of
+    its timeline."""
+    real = session._lint_job
+
+    def lint(ex, timeline):
+        t0 = time.perf_counter()
+        real(ex, timeline)
+        into.append(time.perf_counter() - t0)
+        if streams is not None:
+            streams[id(timeline)] = ex._job_streams()
+
+    session._lint_job = lint
+
+
 def machine_summary(rep: dict) -> dict:
     """Phase 13's numbers for standard output: the card's own (wall
     seconds, load split, state bytes, peak memory) beside the modeled
@@ -2997,6 +3065,317 @@ def machine_summary(rep: dict) -> dict:
         "clutch_over_bitserial_modeled", "gbdt", "reload_predict_s",
         "defrag_predict_s", "launches", "max_memory_allocated_gb",
         "phase_s")}, "jobs": jobs}
+
+
+# --------------------------------------------------------------------- #
+# Phase 14: verified, autoscaled machine serving
+# --------------------------------------------------------------------- #
+
+def pin_bytes(tl, PuDOp):
+    """``mutations.mut_clone_io``'s edit (pin bytes on an in-DRAM wave)
+    on the timeline's first in-DRAM wave: a ``cost.DESKTOP`` job issues
+    no MRACT wave, the one ``mut_clone_io`` looks for."""
+    waves = list(tl.waves)
+    k = next(i for i, w in enumerate(waves)
+             if w.op not in (PuDOp.READ, PuDOp.WRITE))
+    waves[k] = dataclasses.replace(waves[k], io_bytes=16.0)
+    return dataclasses.replace(tl, waves=waves)
+
+
+def run_verified_serving_path(torch, report) -> dict:
+    """Phase 14: phase 13's machine session under ``verify="strict"``,
+    every trace it records linted, serving phase 12's mixes plain and
+    autoscaled.  Every check fails the run; the serving numbers are the
+    loop's simulated clock of modeled makespans and are reported, not
+    gated.  Returns the launch counts of the path."""
+    import repro_torch.kernels as K
+    from repro_torch.analysis import mutations, pudlint
+    from repro_torch.apps import gbdt as G
+    from repro_torch.apps.predicate import Table
+    from repro_torch.core import machine as M
+    from repro_torch.core.machine import PuDArch, PuDOp
+    from repro_torch.pud import PudSession, queries as Q
+    from repro_torch.serve import admission as A, arrivals as Arr
+    from repro_torch.serve import autoscaler as AS
+    from repro_torch.serve import batcher as B, loop as L
+    from repro_torch.serve import pud_service as S
+
+    t_phase = time.perf_counter()
+    table = Table.generate(SERVE_RECORDS, 8, num_features=8, seed=13)
+    forest = G.ObliviousForest.random(num_trees=1000, depth=6,
+                                      num_features=8, n_bits=8, seed=7)
+    rep: dict = {"records": SERVE_RECORDS, "devices": VERIFY_DEVICES,
+                 "arrivals_per_class": SERVE_ARRIVALS,
+                 "load_frac": VERIFY_LOAD_FRAC,
+                 "modeled": "p50, p99, goodput, durations and decisions "
+                            "are the loop's simulated clock: makespans of "
+                            "cost.DESKTOP (DDR4-2666, host merges timed "
+                            "on the card's host), not the card's time"}
+    collector = pudlint.TraceCollector()
+    M._LINT_REGISTRY = collector
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        st = mutations.self_test(device="cuda")   # raises on a miss
+        rep["self_test"] = {"classes": st["classes"],
+                            "distinct_codes": st["distinct_codes"],
+                            "s": time.perf_counter() - t0}
+        expect(st["classes"] == 21 and st["distinct_codes"] >= 8,
+               f"self-test {st}")
+
+        session = PudSession(num_devices=VERIFY_DEVICES,
+                             arch=PuDArch.MODIFIED, backend="machine",
+                             verify="strict")
+        lint_s: list = []
+        streams_of: dict = {}
+        timed_lint(session, lint_s, streams_of)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        th = session.create_table(table, name="events")
+        torch.cuda.synchronize()
+        rep["table_load_s"] = time.perf_counter() - t0
+        enc_table = K.launch_counts()["temporal_encode"]
+        t0 = time.perf_counter()
+        fh = session.load_forest(forest, name="rank", groups_per_device=2,
+                                 banks_per_group=4, replicate="rowclone")
+        torch.cuda.synchronize()
+        rep["forest_load_s"] = time.perf_counter() - t0
+        enc_all = K.launch_counts()["temporal_encode"]
+        expect(th.status == fh.status == "ready",
+               f"after the loads: table {th.status}, forest {fh.status}")
+        expect(enc_table > 0 and enc_all > enc_table,
+               f"temporal_encode launched {enc_table} times for the table, "
+               f"{enc_all - enc_table} for the forest")
+        rep["temporal_encode_launches"] = {"table": enc_table,
+                                           "forest": enc_all - enc_table}
+        subs = {h.name: [sub for _, sub in session.executor(h).placements]
+                for h in (th, fh)}
+        rep["bank_state_bytes"] = {name: sum(x.state.numel() * 4 for x in v)
+                                   for name, v in subs.items()}
+        rep["banks"] = {name: sum(x.num_banks for x in v)
+                        for name, v in subs.items()}
+        expect(rep["bank_state_bytes"]["events"] == 2 ** 32,
+               f"table bank state {rep['bank_state_bytes']['events']} bytes")
+        # the loads' whole traces, from reset, and the self-test's
+        t0 = time.perf_counter()
+        loads = collector.drain()
+        rep["load_drain_s"] = time.perf_counter() - t0
+        rep["subarrays_registered"] = collector.count
+        expect(loads.ok, "load traces: " + loads.summary())
+
+        # capacity and deadline from the probe batch's modeled makespan
+        probe = probe_batch(Q)
+        job = session.query(th, probe)
+        session.clear_traces(th)        # one job a resource between lints
+        with ThreadPoolExecutor(4) as pool:
+            for done in [pool.submit(
+                    check_served_result,
+                    S.PudRequest(rid=-1, resource="events", query=q),
+                    got, table, forest)
+                    for q, got in zip(probe, job.result)]:
+                done.result()
+        m_probe = job.makespan_ns
+        cap_rps = len(probe) / (m_probe / 1e9)
+        deadline_ns = 1.0 * m_probe
+        rep.update(m_probe_ms_modeled=m_probe / 1e6,
+                   cap_rps_modeled=cap_rps,
+                   deadline_ms_modeled=deadline_ns / 1e6)
+        classes = (Arr.ClassSpec("interactive", weight=4.0,
+                                 deadline_ns=deadline_ns),
+                   Arr.ClassSpec("bulk", weight=1.0))
+        arrivals = serving_arrivals(Arr, VERIFY_LOAD_FRAC * cap_rps,
+                                    deadline_ns, 23)
+        requests = {a.rid: a.request for a in arrivals}
+
+        RecordingService, RecordingBatcher = recording_batcher(B, S)
+        svc = RecordingService(session)
+        cfg, hosts = session.sys_cfg, session.hosts
+        planner0 = session.planner_stats()
+        rng = np.random.default_rng(14)
+        rep["runs"] = {}
+        runs = {}
+        for name in ("plain", "autoscaled"):
+            session.sys_cfg = cfg
+            session.set_hosts(hosts)
+            scaler, decide_s = None, []
+            if name == "autoscaled":
+                scaler = AS.UtilizationAutoscaler(
+                    session, lane_options=(1, 2, 4),
+                    host_options=("shared", "per-device"), window=1,
+                    lo_util=0.0, hi_util=0.0)   # re-evaluates every job
+                rescale = scaler._rescale
+
+                def timed_rescale(ex, util, rescale=rescale):
+                    t0 = time.perf_counter()
+                    out = rescale(ex, util)
+                    decide_s.append(time.perf_counter() - t0)
+                    return out
+
+                scaler._rescale = timed_rescale
+            batcher = RecordingBatcher(svc)
+            adm = A.AdmissionController(classes,
+                                        capacity=4 * SERVE_MAX_BATCH,
+                                        starvation_bound=2 * SERVE_MAX_BATCH)
+            loop = L.ServingLoop(svc, adm, batcher, autoscaler=scaler,
+                                 max_batch=SERVE_MAX_BATCH)
+            dispatch = loop._dispatch
+            retired = []
+
+            def checked_dispatch(taken, now, res, dispatch=dispatch,
+                                 retired=retired):
+                n0 = len(res.records)
+                out = dispatch(taken, now, res)
+                for rname in {requests[r.rid].resource_name
+                              for r in res.records[n0:]
+                              if r.start_ns is not None}:
+                    ex = session.planner.resources[rname].executor
+                    expect(ex is not None, f"{name}: {rname} was evicted")
+                    expect(all(not e.sub.trace.entries
+                               and not e.sub.trace.host_events
+                               for e in ex.engines),
+                           f"{name}: {rname}'s traces not retired")
+                    retired.append(rname)
+                return out
+
+            loop._dispatch = checked_dispatch
+            svc.probes.clear()
+            n_lint = len(lint_s)
+            t0 = time.perf_counter()
+            res = loop.run(arrivals)
+            torch.cuda.synchronize()
+            real_s = time.perf_counter() - t0
+            jobs_run = len(svc.probes)
+            expect(len(lint_s) - n_lint == jobs_run,
+                   f"{name}: {len(lint_s) - n_lint} lints of {jobs_run} "
+                   "jobs")
+            expect(res.offered == len(arrivals),
+                   f"{name}: {res.offered} records of {len(arrivals)}")
+            for r in res.records:
+                expect(r.ok or bool(r.error),
+                       f"{name}: failed request {r.rid} carries no error")
+            committed = [r for out, _ in batcher.dispatches
+                         for r in out.responses if r.ok]
+            expect(len(committed) == res.completed,
+                   f"{name}: {len(committed)} ok responses, "
+                   f"{res.completed} completed")
+            full = name == "autoscaled"
+            if not full and len(committed) > SERVE_SAMPLE:
+                pick = rng.choice(len(committed), SERVE_SAMPLE, replace=False)
+                committed = [committed[i] for i in sorted(pick)]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(4) as pool:
+                for done in [pool.submit(check_served_result,
+                                         requests[r.rid], r.result, table,
+                                         forest) for r in committed]:
+                    done.result()
+            check_s = time.perf_counter() - t0
+            if scaler is not None:
+                expect(len(scaler.decisions) >= 1,
+                       "the always-trigger autoscaler took no decision")
+                for d in scaler.decisions:
+                    expect(d.predicted_ns <= d.static_best_ns,
+                           f"decision {d} slower than the best static")
+                expect(res.decisions == scaler.decisions,
+                       "report.decisions differ from the scaler's")
+            lints = lint_s[n_lint:]
+            runs[name] = (res, batcher)
+            rep["runs"][name] = {
+                **res.to_json(),
+                "p50_ms_modeled": res.p50_ns / 1e6,
+                "p99_ms_modeled": res.p99_ns / 1e6,
+                "duration_s_modeled": res.duration_ns / 1e9,
+                "real_s": real_s, "jobs": jobs_run,
+                "committed_jobs": sum(len(out.jobs)
+                                      for out, _ in batcher.dispatches),
+                "dispatches_retired": len(retired),
+                "lint_s_median": float(np.median(lints)),
+                "lint_s_max": max(lints), "lint_s_total": sum(lints),
+                "results_checked": len(committed), "check_s": check_s,
+                "decisions [host_lanes, hosts, predicted_ns, baseline_ns]":
+                    None if scaler is None else [
+                        [d.host_lanes, d.hosts, d.predicted_ns,
+                         d.baseline_ns] for d in scaler.decisions],
+                "autoscaler_s_per_decision": decide_s or None}
+        session.sys_cfg = cfg
+        session.set_hosts(hosts)
+        planner1 = session.planner_stats()
+        expect(planner1["evictions"] == planner0["evictions"],
+               f"the planner evicted while serving: {planner1}")
+        rep["planner"] = planner1
+
+        # a committed job's timeline made invalid must not verify
+        out, _ = runs["plain"][1].dispatches[0]
+        tl = out.jobs[0].timeline
+        streams = streams_of[id(tl)]
+        expect(tl.verify(sys_cfg=cfg, streams=streams).ok,
+               "a committed job's timeline does not verify")
+        negative = {}
+        for what, bad, code in (
+                ("mut_op_swap", mutations.mut_op_swap(tl, streams), "PL307"),
+                ("pin_bytes", pin_bytes(tl, PuDOp), "PL306")):
+            try:
+                bad.verify(sys_cfg=cfg, streams=streams)
+                expect(False, f"{what}: Timeline.verify did not raise")
+            except pudlint.PudLintError as err:
+                codes = sorted(err.report.codes())
+                expect(code in codes, f"{what}: {codes}, not {code}")
+                negative[what] = codes
+        rep["negative"] = negative
+
+        # PL401: every dispatched request audited once, then the drain
+        dispatched = sorted(r.rid for res, _ in runs.values()
+                            for r in res.records if r.start_ns is not None)
+        audited = sorted(x["rid"] for x in collector._serving)
+        expect(audited == dispatched,
+               f"{len(audited)} PL401 records of {len(dispatched)} "
+               "dispatched requests")
+        rep["pl401_records"] = len(audited)
+        t0 = time.perf_counter()
+        final = collector.drain()
+        rep["final_drain_s"] = time.perf_counter() - t0
+        expect(final.ok, "final drain: " + final.summary())
+        rep["final_drain_diagnostics"] = len(final.diagnostics)
+        rep["jobs_linted"] = len(lint_s)
+        rep["lint_s_median"] = float(np.median(lint_s))
+        rep["lint_s_max"] = max(lint_s)
+        counts = K.launch_counts()
+        expect(counts["temporal_encode"] == enc_all,
+               "temporal_encode launched outside the loads")
+        rep["launches"] = counts
+        rep["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        M._LINT_REGISTRY = None
+    del session, svc, runs, job, tl, streams, streams_of, out, subs
+    free(torch)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    report["verified_serving"] = rep
+    return counts
+
+
+def verified_summary(rep: dict, machine: dict) -> dict:
+    """Phase 14's numbers for standard output: the card's own (host
+    seconds, bytes, peak memory), phase 13's GBDT lint, and the modeled
+    serving numbers, each labelled."""
+    keys = ("offered", "completed", "shed", "splits", "probes", "jobs",
+            "committed_jobs", "p50_ms_modeled", "p99_ms_modeled",
+            "goodput_rps", "duration_s_modeled", "real_s",
+            "dispatches_retired", "lint_s_median", "lint_s_max",
+            "results_checked", "check_s",
+            "decisions [host_lanes, hosts, predicted_ns, baseline_ns]",
+            "autoscaler_s_per_decision")
+    return {**{k: rep[k] for k in (
+        "records", "devices", "modeled", "self_test", "table_load_s",
+        "forest_load_s", "bank_state_bytes", "banks",
+        "temporal_encode_launches", "load_drain_s", "final_drain_s",
+        "subarrays_registered", "m_probe_ms_modeled", "cap_rps_modeled",
+        "deadline_ms_modeled", "jobs_linted", "lint_s_median", "lint_s_max",
+        "pl401_records", "negative", "max_memory_allocated_gb",
+        "phase_s")},
+        "phase13_gbdt_lint_s": machine["gbdt"]["lint_s"],
+        "phase13_gbdt_scheduled_waves": machine["gbdt"]["scheduled_waves"],
+        "runs": {name: {k: r[k] for k in keys}
+                 for name, r in rep["runs"].items()}}
 
 
 # --------------------------------------------------------------------- #
@@ -3502,6 +3881,12 @@ def main() -> int:
         row["launches"] += mcounts[row["name"]]
     log(f"phase 13: machine backend ok in "
         f"{report['machine']['phase_s']:.1f} s")
+    free(torch)
+    vcounts = run_verified_serving_path(torch, report)
+    for row in rows:
+        row["launches"] += vcounts[row["name"]]
+    log(f"phase 14: verified serving ok in "
+        f"{report['verified_serving']['phase_s']:.1f} s")
 
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)
@@ -3515,6 +3900,8 @@ def main() -> int:
           flush=True)
     print("phase13 " + json.dumps(machine_summary(report["machine"])),
           flush=True)
+    print("phase14 " + json.dumps(verified_summary(
+        report["verified_serving"], report["machine"])), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

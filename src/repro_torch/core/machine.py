@@ -62,6 +62,13 @@ NUM_RESERVED = 8
 #: Row address operand: a broadcast row index, or per-bank indices [banks].
 RowIdx = Union[int, np.ndarray]
 
+#: When a harness sets this to a set-like object with ``add`` (e.g.
+#: :class:`repro_torch.analysis.pudlint.TraceCollector`), every
+#: :class:`BankedSubarray` registers itself here at construction, so
+#: the harness can lint every trace it recorded.  ``None`` (the default)
+#: disables registration.
+_LINT_REGISTRY: "set | None" = None
+
 
 class PuDArch(str, enum.Enum):
     UNMODIFIED = "unmodified"
@@ -373,6 +380,8 @@ class BankedSubarray:
             self.G = (num_rows - 3, num_rows - 4, num_rows - 5, num_rows - 6)
         self._frac_row: int | None = None
         self._alloc_ptr = 0  # bump allocator for data/LUT rows
+        if _LINT_REGISTRY is not None:
+            _LINT_REGISTRY.add(self)
 
     # ------------------------------------------------------------------ #
     # Row addressing

@@ -31,8 +31,8 @@ stream per step; here each stream keeps the set of its segments that are
 ready and still hold waves, updated when a segment finishes or a host
 node ends, so a step costs the ready frontier instead of the whole
 history (a 4,096-instance GBDT job on 16 groups schedules ~70,000
-waves).  Left out: ``Timeline.verify``, the reference's static verifier
-(pudlint), not yet ported.
+waves).  :meth:`Timeline.verify` runs :mod:`repro_torch.analysis.pudlint`
+over a scheduled timeline.
 """
 
 from __future__ import annotations
@@ -63,8 +63,8 @@ class GroupStream:
     domain 0 -- one shared host).
 
     ``rows`` / ``num_rows`` / ``arch`` / ``multi_row_act`` /
-    ``from_reset`` are machine metadata for a static verifier (the
-    reference's pudlint, not yet ported): the per-wave row operands, the
+    ``from_reset`` are machine metadata used by the static verifier
+    (:mod:`repro_torch.analysis.pudlint`): the per-wave row operands, the
     recording subarray's geometry and capability, and whether the
     stream starts from subarray reset (a trimmed mid-life job stream
     does not, so uninit-read analysis is skipped on it).  They default
@@ -188,6 +188,20 @@ class Timeline:
     group_span_ns: dict[str, tuple[float, float]]
     group_elems: dict[str, int] = field(default_factory=dict)  # SIMD width
     host_spans: list[HostSpan] = field(default_factory=list)
+
+    def verify(self, sys_cfg=None, streams=None, mode: str = "strict"):
+        """Run the :mod:`repro_torch.analysis.pudlint` static verifier
+        over this timeline (protocol/capability conformance; plus the
+        row-dataflow and hazard passes when the scheduled ``streams``
+        are supplied).  ``mode``: ``"strict"`` raises
+        :class:`repro_torch.analysis.PudLintError` on any error-severity
+        diagnostic, ``"warn"`` warns, ``"off"`` only collects.
+        Returns the :class:`repro_torch.analysis.LintReport`."""
+        from repro_torch.analysis import pudlint
+
+        report = pudlint.lint_timeline(self, sys_cfg=sys_cfg,
+                                       streams=streams)
+        return pudlint.enforce(report, mode, where="Timeline.verify")
 
     def channel_utilization(self, channel: int) -> float:
         if self.makespan_ns <= 0:

@@ -49,9 +49,14 @@ its own ``(n_bits, num_chunks)``; ``handle.representation`` reports the
 plans; :meth:`PudSession.recode_column` re-encodes one column by
 evicting the resource, whose next job rebuilds it.
 
-Left out: the reference's ``verify`` knob and job linting (its static
-verifier, pudlint, is not ported; the reference's default is
-``"off"``).
+Verification: ``verify`` runs :mod:`repro_torch.analysis.pudlint` over
+every machine job's trimmed streams and scheduled timeline, each
+device's clone confinement (PL302) and each engine's LUT layout against
+its declared plans (PL501): ``"strict"`` raises
+:class:`~repro_torch.analysis.PudLintError`, ``"warn"`` warns, ``"off"``
+skips.  ``None`` takes :attr:`PudSession.DEFAULT_VERIFY` (``"off"``;
+the port's tests flip it to ``"strict"``).  Fused jobs record no
+streams and are not linted, as in the reference.
 """
 
 from __future__ import annotations
@@ -165,21 +170,32 @@ class PudSession:
     docstring).  ``num_devices``, ``arch``, ``num_rows`` and ``seed``
     describe the modeled fleet (``seed + 1000 * i`` seeds device ``i``'s
     power-up state); ``hosts`` is its host model (``"shared"`` or
-    ``"per-device"``)."""
+    ``"per-device"``); ``verify`` the lint mode of machine jobs."""
+
+    #: Session-wide default for the ``verify`` knob (``None`` in a
+    #: constructor call resolves to this): the port's tests set it to
+    #: ``"strict"`` so every machine job they run is linted.
+    DEFAULT_VERIFY: str = "off"
 
     def __init__(self, sys_cfg=cost.DESKTOP, devices=None,
                  num_devices: int = 1, arch: PuDArch = PuDArch.MODIFIED,
                  num_rows: int = 1024, seed: int | None = 0,
                  hosts: str = "shared", backend: str = "machine",
-                 device=None) -> None:
+                 verify: str | None = None, device=None) -> None:
         if hosts not in ("shared", "per-device"):
             raise ValueError(
                 f"hosts must be 'shared' or 'per-device', got {hosts!r}")
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend must be 'machine' or 'fused', got {backend!r}")
+        if verify is None:
+            verify = self.DEFAULT_VERIFY
+        if verify not in ("strict", "warn", "off"):
+            raise ValueError(
+                f"verify must be 'strict', 'warn' or 'off', got {verify!r}")
         if devices is None and num_devices < 1:
             raise ValueError("need at least one device")
+        self.verify = verify
         self.device = resolve_device(device)
         self.sys_cfg = sys_cfg
         #: default backend of jobs; ``backend=`` on a job overrides it
@@ -596,6 +612,32 @@ class PudSession:
                 f"backend must be 'machine' or 'fused', got {backend!r}")
         return backend
 
+    def _lint_job(self, ex, timeline: Timeline) -> None:
+        """Run pudlint over a machine job's trimmed streams and scheduled
+        timeline (plus each device's clone-confinement rule and the
+        PL501 audit of every engine's LUT layout against the declared
+        plans), applying the session's ``verify`` mode."""
+        if self.verify == "off":
+            return
+        from repro_torch.analysis import pudlint
+
+        report = pudlint.lint_timeline(
+            timeline, sys_cfg=self.sys_cfg, streams=ex._job_streams())
+        for dev in dict.fromkeys(d for d, _ in ex.placements):
+            report.diagnostics.extend(
+                pudlint.clone_confinement_diags(dev))
+        plans = getattr(ex, "plans", None)
+        if plans is not None:
+            for eng in ex.engines:
+                report.diagnostics.extend(pudlint.representation_diags(
+                    eng.engines, plans, group=eng.label))
+        plan = getattr(ex, "plan", None)
+        if plan is not None:
+            for eng in ex.engines:
+                report.diagnostics.extend(pudlint.representation_diags(
+                    [eng.engine], [plan], group=eng.label))
+        pudlint.enforce(report, self.verify, where="PudSession job")
+
     # ------------------------------------------------------------------ #
     # Jobs
     # ------------------------------------------------------------------ #
@@ -620,6 +662,7 @@ class PudSession:
         ex = self._machine_exec(table.name, "table")
         results = ex.run(batch)
         timeline = ex.schedule(self.sys_cfg)
+        self._lint_job(ex, timeline)
         stats = ex.last_stats(self.sys_cfg, timeline=timeline)
         return JobResult(result=results[0] if single else results,
                          stats=stats, timeline=timeline)
@@ -640,6 +683,7 @@ class PudSession:
         ex = self._machine_exec(forest.name, "forest")
         preds = ex.infer(np.asarray(X))
         timeline = ex.schedule(self.sys_cfg)
+        self._lint_job(ex, timeline)
         stats = ex.last_stats(self.sys_cfg, timeline=timeline)
         return JobResult(result=preds, stats=stats, timeline=timeline)
 
@@ -649,7 +693,12 @@ class PudSession:
     def clear_traces(self, handle: ResourceHandle) -> None:
         """Forget a resource's recorded command streams (e.g. LUT
         loading, before reading raw traces or device schedules; job
-        timelines are already job-scoped)."""
+        timelines are already job-scoped).  A fused session's resource
+        that no machine job has placed has recorded nothing: nothing is
+        built for it."""
+        self._recipe(handle.name, None)
+        if handle.name not in self.planner.resources:
+            return
         for eng in self._machine_exec(handle.name).engines:
             eng.sub.trace.clear()
 

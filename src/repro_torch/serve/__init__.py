@@ -9,7 +9,8 @@
 
 Serving model
 -------------
-The PuD serving stack turns the card's measured job wall-clocks into
+The PuD serving stack turns job latencies -- a machine job's modeled
+makespan, a fused job's measured wall-clock on the card -- into
 application-level serving metrics (p50/p99 latency, goodput under
 offered load) on ONE simulated clock:
 
@@ -26,12 +27,14 @@ offered load) on ONE simulated clock:
   attributed completion blows their remaining budget split into a
   leaner batch that runs first, and the probe's results are discarded.
 * :mod:`repro_torch.serve.loop` -- the event loop binding the above:
-  ingest -> admit -> form -> execute; queueing delay eats deadline
-  budget, service time feeds back into queueing, saturation emerges.
-
-The reference's ``serve/autoscaler.py`` has no counterpart: it
-re-schedules a job's recorded command streams, which the card's jobs
-do not record.
+  ingest -> admit -> form -> execute -> scale; queueing delay eats
+  deadline budget, service time feeds back into queueing, saturation
+  emerges; each dispatched request is reported to the active pudlint
+  collector (PL401) and each dispatch retires its resource's traces.
+* :mod:`repro_torch.serve.autoscaler` -- rolling host-utilization bands
+  trigger re-evaluation; a machine job's recorded streams re-schedule
+  under every ``(host_lanes, hosts)`` candidate and the argmin config
+  applies through the session hooks.
 
 Submodules are imported explicitly (``engine`` pulls in the models; the
 PuD serving stack does not).

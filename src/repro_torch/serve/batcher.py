@@ -10,14 +10,15 @@ attributed latency can blow an individual member's ``deadline_ns``
 budget -- and checking only after the fact means the expired request
 fails with the batch already committed.
 
-:class:`DeadlineBatcher` moves the check before the commit.  The
-session's only cost oracle is the card's measured wall-clock, so a
-probe is a real execution of the candidate batch:
+:class:`DeadlineBatcher` moves the check before the commit.  A probe
+is a real execution of the candidate batch (on the card's kernels, or
+on the machine model whose bank state is on the card):
 
 1. probe-run the candidate batch via ``PudService._run_batch`` and
-   read each member's *attributed* latency (an even share of the
-   measured wall-clock for queries, a share proportional to instance
-   count for predicts);
+   read each member's *attributed* latency (on a fused job an even
+   share of the measured wall-clock for queries, a share proportional
+   to instance count for predicts; on a machine job the modeled
+   completion of its last wave);
 2. if a member's predicted completion exceeds its remaining deadline
    budget, the batch SPLITS: the deadline-pressed members commit
    FIRST in their own lean batch (a late member's only hope), while

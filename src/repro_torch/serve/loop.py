@@ -1,7 +1,9 @@
 """Simulated-clock open-loop serving for the PuD substrate.
 
-Counterpart of the reference package's ``serve/loop.py``, with the
-card's measured job wall-clock as the cost oracle.
+Counterpart of the reference package's ``serve/loop.py``.  Its cost
+oracle is the session's: a machine job's modeled, scheduled makespan
+(its bank state on the card), or a fused job's measured wall-clock on
+the card.
 
 Serving model (the loop)
 ------------------------
@@ -20,7 +22,10 @@ simulated clock drives everything:
    taken request's *remaining* deadline budget is its absolute
    deadline minus the clock: queueing delay eats SLO, exactly like a
    real server.  A request whose budget is already negative is shed
-   here with a 429 (it could never succeed).
+   here with a 429 (it could never succeed; scheduling it would be the
+   PL401 pudlint violation) -- dispatched requests are reported to the
+   pudlint collector so the serving-admission pass audits every
+   schedule this loop commits.
 3. **Execute** -- the batch dispatches through the
    :class:`~repro_torch.serve.batcher.DeadlineBatcher` (probe, predict,
    split); the clock advances by the dispatch's makespan, so service
@@ -28,13 +33,15 @@ simulated clock drives everything:
    saturation emerges instead of being modeled.  The makespan is
    built from attributed latencies (see the batcher), so the clock
    is not the host's elapsed time.
-
-The reference's loop has a fourth step that this one leaves out, with
-the pieces it needs: the autoscaler re-schedules a job's recorded
-command streams under other host-lane configs (the card's jobs record
-no streams and have no timeline), each dispatched request is reported
-to pudlint's serving pass (the port has no pudlint), and each dispatch
-ends by retiring its resource's simulator traces (the card keeps none).
+4. **Scale** -- each committed machine job's timeline feeds the optional
+   :class:`~repro_torch.serve.autoscaler.UtilizationAutoscaler`, whose
+   config changes take effect on the next dispatch (fused jobs have no
+   timeline and are skipped).  The dispatched resource's recorded
+   command traces are then retired
+   (:meth:`~repro_torch.pud.session.PudSession.clear_traces`): job-scoped
+   stats, lint and attribution all happen before retirement, and a
+   long-running server must not accumulate trace history without
+   bound.
 
 The returned :class:`ServingReport` carries every per-request record
 plus the derived curve points (p50/p99 over *successful* requests,
@@ -46,6 +53,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 
 import numpy as np
+
+from repro_torch.core import machine
 
 from .admission import AdmissionController
 from .arrivals import Arrival
@@ -81,8 +90,7 @@ class ServingReport:
     metrics.  ``goodput_rps`` counts only ``ok`` completions (SLO met,
     not shed) per simulated second -- the quantity that saturates and
     then *degrades* as offered load outruns capacity.  ``decisions``
-    stays empty (no autoscaler runs on the card), so :meth:`to_json`
-    keeps the reference's keys."""
+    lists the autoscaler's decisions, if one ran."""
 
     records: list[ServedRecord] = field(default_factory=list)
     duration_ns: float = 0.0
@@ -138,20 +146,19 @@ class ServingReport:
 
 
 class ServingLoop:
-    """Event loop binding arrivals -> admission -> batcher over one
-    :class:`~repro_torch.serve.pud_service.PudService`.  The reference's
-    ``autoscaler`` argument is left out: it needs a job's recorded
-    streams and timeline, which the card's jobs do not have."""
+    """Event loop binding arrivals -> admission -> batcher -> scaler
+    over one :class:`~repro_torch.serve.pud_service.PudService`."""
 
     def __init__(self, service: PudService,
                  admission: AdmissionController,
                  batcher: DeadlineBatcher | None = None,
-                 max_batch: int = 8) -> None:
+                 autoscaler=None, max_batch: int = 8) -> None:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.service = service
         self.admission = admission
         self.batcher = batcher or DeadlineBatcher(service)
+        self.autoscaler = autoscaler
         self.max_batch = max_batch
 
     def run(self, arrivals: list[Arrival]) -> ServingReport:
@@ -179,6 +186,8 @@ class ServingLoop:
         report.duration_ns = clock
         report.splits = self.batcher.splits
         report.probes = self.batcher.probes
+        if self.autoscaler is not None:
+            report.decisions = list(self.autoscaler.decisions)
         return report
 
     # ------------------------------------------------------------------ #
@@ -192,8 +201,8 @@ class ServingLoop:
         for a in taken:
             deadline_abs = a.deadline_abs_ns
             if deadline_abs is not None and deadline_abs < now:
-                # a request whose deadline precedes its start can never
-                # succeed: shed it with an explicit overload-class error
+                # dispatching this would BE the PL401 violation: shed
+                # it with an explicit overload-class error instead
                 report.records.append(ServedRecord(
                     rid=a.rid, cls=a.cls, arrive_ns=a.arrive_ns,
                     ok=False, error=(
@@ -211,6 +220,7 @@ class ServingLoop:
             reqs = []
             for a in group:
                 deadline_abs = a.deadline_abs_ns
+                self._audit(a, start, deadline_abs)
                 budget = None if deadline_abs is None \
                     else deadline_abs - start
                 reqs.append(replace(a.request, deadline_ns=budget))
@@ -220,5 +230,28 @@ class ServingLoop:
                     rid=a.rid, cls=a.cls, arrive_ns=a.arrive_ns,
                     ok=resp.ok, error=resp.error, start_ns=start,
                     finish_ns=start + resp.latency_ns))
+            if self.autoscaler is not None:
+                ex = self.service.session.executor(handle)
+                for job in outcome.jobs:
+                    self.autoscaler.observe(ex, job.timeline)
+            # retire the resource's recorded command traces now that the
+            # dispatch is committed, linted (per-job verify + PL4xx
+            # audit) and observed: a long-running server would
+            # otherwise grow every subarray's recorded history without
+            # bound, and whole-trace lints would see successive jobs'
+            # row reuse as cross-job hazards no scheduler ever races
+            self.service.session.clear_traces(handle)
             offset += outcome.makespan_ns
         return now + offset
+
+    @staticmethod
+    def _audit(a: Arrival, start_ns: float,
+               deadline_abs: float | None) -> None:
+        """Report one dispatched request to the active pudlint
+        collector (``machine._LINT_REGISTRY``) for the PL4xx
+        serving-admission pass."""
+        reg = machine._LINT_REGISTRY
+        if reg is not None and hasattr(reg, "add_serving"):
+            reg.add_serving({"rid": a.rid, "cls": a.cls,
+                             "start_ns": start_ns,
+                             "deadline_ns": deadline_abs})

@@ -19,6 +19,7 @@ import pytest
 from hypothesis import given, settings, strategies as st
 
 from test_torch_machine import ARCHS, BOTH, PORT, REF, stats_key, timeline_key
+from test_torch_pudlint import port_pudlint_sweep  # noqa: F401  (autouse)
 
 SYSTEMS = ("desktop-ddr4-2666", "edge-ddr4-2400", "gpu-a100-hbm2")
 OPS = ("rowcopy", "tra", "apa", "frac", "not", "read", "write", "rowclone",

@@ -30,6 +30,7 @@ from test_torch_machine import (
     state,
     trace_key,
 )
+from test_torch_pudlint import port_pudlint_sweep  # noqa: F401  (autouse)
 
 
 def _subs(name, banks, rows, cols, seed=5, mra=1):

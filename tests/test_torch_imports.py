@@ -53,7 +53,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "apps.pipeline", "apps.predicate", "apps.gbdt",
               "pud.executors", "pud.session",
               "pud.planner", "serve.pud_service", "serve.arrivals",
-              "serve.admission", "serve.batcher", "serve.loop"):
+              "serve.admission", "serve.batcher", "serve.loop",
+              "serve.autoscaler", "analysis", "analysis.pudlint",
+              "analysis.mutations"):
         assert f"repro_torch.{m}" in mods
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -57,6 +57,7 @@ import repro_torch.pud.planner as t_planner
 import repro_torch.pud.queries as t_queries
 import repro_torch.pud.session as t_session
 import repro_torch.serve.pud_service as t_service
+from test_torch_pudlint import port_pudlint_sweep  # noqa: F401  (autouse)
 
 
 def _bundle(prefix: str, dev: dict, sess: dict) -> types.SimpleNamespace:

@@ -40,6 +40,7 @@ from test_torch_machine import (
     timeline_key,
     trace_key,
 )
+from test_torch_pudlint import port_pudlint_sweep  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

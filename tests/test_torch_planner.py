@@ -35,6 +35,7 @@ from repro_torch.core import encoding as tenc
 from repro_torch.core import machine as tmach
 from repro_torch.core import scheduler as tsched
 from repro_torch.pud import planner as tplan
+from test_torch_pudlint import port_pudlint_sweep  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = [(jmach.PuDArch.MODIFIED, tmach.PuDArch.MODIFIED),

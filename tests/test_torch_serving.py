@@ -51,6 +51,7 @@ from repro_torch.serve import arrivals as TArr
 from repro_torch.serve import batcher as TB
 from repro_torch.serve import loop as TL
 from repro_torch.serve import pud_service as TS
+from test_torch_pudlint import port_pudlint_sweep  # noqa: F401  (autouse)
 
 N_BITS = 8
 COLS = 4096

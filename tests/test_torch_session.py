@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.apps import gbdt as TG
 from repro_torch.core.machine import PuDArch
 from repro_torch.pud import PudSession, queries as TQ
+from test_torch_pudlint import port_pudlint_sweep  # noqa: F401  (autouse)
 
 
 def _queries(Q, mx):
