@@ -237,6 +237,30 @@ Phases (any failure exits non-zero; none is caught and passed over):
     decisions on the loop's simulated clock of ``cost.DESKTOP``
     makespans).
 
+15. The mesh layer, last, on a one-rank NCCL group over a local store
+    (destroyed after (b)): (a) phase 9's reduced granite in float32
+    trained 2 steps through ``jit_train_step`` on ``make_host_mesh()``
+    (1 x 1), each step's loss and grad_norm within 1e-5 of phase 9's
+    ``make_train_step`` on the card (step 1 holds step 0's update);
+    then ``granite-moe-3b-a800m`` at full width trained 2 steps of
+    phase 9's 4 x 4,096 tokens the same way, parameters and moments
+    DTensors on the card, step 0's loss and grad_norm within phase 10's
+    2e-2 of phase 9's; (b) phase 3's table and phase 4's forest through
+    ``FusedTableExec`` / ``FusedGbdtExec`` with ``mesh=shard_mesh(2)``
+    (one rank on one card, so it holds both shards): every bitmap and
+    count equal to its NumPy reference and to phase 3's, leaf addresses
+    and predictions to phase 4's, and ``temporal_encode``,
+    ``fused_predicate_banked``, ``fused_compound_banked`` and
+    ``gbdt_leafbits_banked`` launched (their launches join the
+    ``kernels`` line's); (c) the dry run's cells
+    (:data:`DRYRUN_CELLS`, one per block kind) on the fake 256-rank
+    production mesh, each ``python -m repro_torch.launch.dryrun`` in a
+    process of its own, all started together after (b) (on the CPU,
+    once nothing on the card is timed): per-device parameter and moment
+    bytes times 256 at least the whole tensors', the model-FLOP ratio
+    finite and positive.  A ``phase15`` JSON line gives (a)-(b)'s
+    numbers on the card and (c)'s, labelled modeled.
+
 Launch counts are set to 0 just before each path runs and read just
 after; a kernel of the path with no launch fails the run.  Progress and
 a detailed JSON report (per-query wall-clock, launch counts per path,
@@ -250,6 +274,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -428,6 +453,17 @@ MACHINE_RECHECK = 512
 # 512 banks, 4.29 GB) and the forest 8
 VERIFY_DEVICES = 16
 VERIFY_LOAD_FRAC = 0.5
+# phase 15: the mesh layer.  (a) phase 9's granite, 2 steps through
+# jit_train_step on a one-rank make_host_mesh(); (c) one dry-run cell per
+# block kind on the fake 256-rank production mesh, a subprocess each
+# (the fake group and the card's NCCL group cannot both be the default
+# group of one process)
+MESH_TRAIN_STEPS = 2
+DRYRUN_CELLS = (("granite-moe-3b-a800m", "train_4k"),
+                ("minitron-8b", "decode_32k"),
+                ("rwkv6-3b", "long_500k"),
+                ("jamba-v0.1-52b", "prefill_32k"))
+DRYRUN_TIMEOUT_S = 600
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -3379,6 +3415,289 @@ def verified_summary(rep: dict, machine: dict) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# Phase 15: the mesh layer
+# --------------------------------------------------------------------- #
+
+def mesh_train_reduced(torch, plain_rows: list) -> list:
+    """Phase 9's reduced granite in float32 on the card, 2 steps (2
+    microbatches) through ``jit_train_step`` on a one-rank host mesh:
+    each step's loss and grad_norm within ``CARD_CPU_RTOL`` of phase 9's
+    ``make_train_step`` on the card (``plain_rows``), so step 1's loss
+    holds step 0's update and the gradients accumulated on DTensors."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.sharding import device_put, shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    oc = O.OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    mesh = make_host_mesh()
+    pspecs = M.param_specs(cfg)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = device_put(params, shardings(mesh, pspecs, params))
+    opt = O.init_opt_state(oc, params)
+    opt = device_put(opt, shardings(mesh, O.opt_state_specs(pspecs), opt))
+    src = SyntheticLM(cfg, SHAPES["train_4k"].reduced(), seed=0,
+                      microbatches=2)
+    first = src.batch_at(0)
+    step = T.jit_train_step(cfg, oc, mesh, {
+        k: (tuple(v.shape), str(v.dtype)) for k, v in first.items()})
+    rows = []
+    for i in range(2):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in src.batch_at(i).items()}
+        params, opt, st = step(params, opt, batch)
+        rows.append([float(st["loss"]), float(st["grad_norm"])])
+    for i, (a, b) in enumerate(zip(rows, plain_rows)):
+        for x, y in zip(a, b):
+            expect(np.isfinite(x) and abs(x - y) <= CARD_CPU_RTOL * abs(y),
+                   f"reduced mesh vs plain step {i}: {a} vs {b}")
+    del params, opt
+    free(torch)
+    return rows
+
+
+def mesh_training(torch, plain: dict) -> dict:
+    """(a) full-width granite, 2 steps of phase 9's batches through
+    ``jit_train_step`` on a one-rank host mesh: step 0's loss and
+    grad_norm within phase 10's 2e-2 of phase 9's (``plain``, phase 9's
+    report), parameters and moments DTensors on the card; before it the
+    reduced model's 2 steps against phase 9's within 1e-5
+    (:func:`mesh_train_reduced`)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.sharding import device_put, shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+
+    reduced = mesh_train_reduced(
+        torch, plain["card_vs_cpu"]["train_loss_grad_norm"])
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    oc = O.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=MESH_TRAIN_STEPS, opt_dtype=cfg.opt_dtype)
+    mesh = make_host_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pspecs = M.param_specs(cfg)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    params = device_put(params, shardings(mesh, pspecs, params))
+    opt = O.init_opt_state(oc, params)
+    opt = device_put(opt, shardings(mesh, O.opt_state_specs(pspecs), opt))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def on_card(tree) -> bool:
+        return all(isinstance(t, DTensor) and t.to_local().is_cuda
+                   for t in param_leaves(tree))
+
+    expect(on_card(params) and on_card(opt),
+           "parameters and moments on the card as DTensors")
+    src = SyntheticLM(cfg, shape, seed=0, microbatches=TRAIN_MICRO)
+    first = {k: torch.from_numpy(v) for k, v in src.batch_at(0).items()}
+    step = T.jit_train_step(cfg, oc, mesh, {
+        k: (tuple(v.shape), str(v.dtype)) for k, v in first.items()})
+    losses, norms, steps_ms = [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in src.batch_at(i).items()}
+        t = time.perf_counter()
+        params, opt, st = step(params, opt, batch)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(st["loss"]))
+        norms.append(float(st["grad_norm"]))
+    expect(all(np.isfinite(losses + norms)),
+           f"mesh training losses {losses}, grad norms {norms}")
+    for what, got, want in (("loss", losses[0], plain["losses"][0]),
+                            ("grad_norm", norms[0],
+                             plain["grad_norms"][0])):
+        expect(abs(got - want) <= OPT_LOSS0_RTOL * abs(want),
+               f"mesh step-0 {what} {got} vs phase 9's {want}")
+    expect(on_card(params) and on_card(opt),
+           "parameters and moments stay DTensors on the card")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, batch
+    free(torch)
+    return {"mesh": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
+            "reduced_f32_loss_grad_norm": reduced,
+            "losses": losses, "grad_norms": norms,
+            "losses_phase9": plain["losses"][:MESH_TRAIN_STEPS],
+            "grad_norms_phase9": plain["grad_norms"][:MESH_TRAIN_STEPS],
+            "step_ms": steps_ms, "setup_s": setup_s, "peak_gb": peak}
+
+
+def mesh_session(torch, table, tshape: dict, forest, X, addrs, predictions
+                 ) -> tuple[dict, dict]:
+    """(b) phase 3's table and phase 4's forest through the fused
+    executors over ``shard_mesh(2)`` (one rank here): every bitmap and
+    count equal to its NumPy reference and to phase 3's, the leaf
+    addresses and predictions to phase 4's, bit for bit.  Returns (the
+    report, the launch counts)."""
+    import repro_torch.kernels as K
+    from repro_torch.apps import gbdt as G
+    from repro_torch.dist.sharding import shard_mesh
+    from repro_torch.kernels.fused_session import (
+        FusedGbdtExec,
+        FusedTableExec,
+    )
+    from repro_torch.pud import queries as Q
+
+    mesh = shard_mesh(tshape["shards"])
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    tx = FusedTableExec(table, tshape["shards"], tshape["chunks"],
+                        mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    expect(tx.lut.shape[0] == tshape["shards"] // mesh.size(),
+           f"rank LUT of {tx.lut.shape[0]} shards")
+    queries = {}
+    for name, q in table_queries(Q, (1 << 32) - 1):
+        t = time.perf_counter()
+        got = tx.run([q.to_tuple()])[0]
+        wall = (time.perf_counter() - t) * 1e3
+        want = q.reference(table)
+        if isinstance(want, np.ndarray):
+            expect(np.array_equal(got, want), f"mesh {name} bitmap")
+            summary = int(got.sum())
+        else:
+            expect(q.check(table, got), f"mesh {name}: {got} vs {want}")
+            summary = got
+        expect(summary == tshape["queries"][name]["result"],
+               f"mesh {name}: {summary} vs phase 3's "
+               f"{tshape['queries'][name]['result']}")
+        queries[name] = {"wallclock_ms": wall, "result": summary}
+    del tx
+    free(torch)
+    gx = FusedGbdtExec(forest, tshape["forest_chunks"], mesh=mesh)
+    t = time.perf_counter()
+    got_addrs = gx.leaf_addrs(X)
+    predict_ms = (time.perf_counter() - t) * 1e3
+    expect(np.array_equal(got_addrs, addrs), "mesh leaf addresses")
+    expect(np.array_equal(G.assemble_leaves(forest.leaves, got_addrs),
+                          predictions), "mesh predictions")
+    counts = K.launch_counts()
+    for k in ("temporal_encode", "fused_predicate_banked",
+              "fused_compound_banked", "gbdt_leafbits_banked"):
+        expect(counts[k] > 0, f"{k} not launched on the mesh path")
+    del gx
+    free(torch)
+    return ({"mesh": [mesh.size()], "shards": tshape["shards"],
+             "lut_build_s": build_s, "queries": queries,
+             "leaf_addrs_ms": predict_ms, "launches": counts}, counts)
+
+
+def run_dryrun(out_dir: str) -> dict:
+    """(c) the dry run of :data:`DRYRUN_CELLS` on the fake 256-rank
+    production mesh, one ``python -m repro_torch.launch.dryrun`` process
+    a cell, all started together once the card's phases are done (on
+    the CPU; the fake group needs a process of its own), and their
+    records: each cell's per-device bytes, roofline terms and bottleneck
+    (modeled, 256 x H100); per-device parameter and moment bytes times
+    the chips at least the whole tensors' bytes, and a finite, positive
+    model-FLOP ratio."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--out", out_dir],
+        env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for cell in DRYRUN_CELLS}
+    try:
+        for (arch, shape), proc in procs.items():
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            _, err = proc.communicate(timeout=max(left, 1.0))
+            expect(proc.returncode == 0, f"dry run {arch} {shape}: exit "
+                   f"{proc.returncode}: {err[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        path = Path(out_dir) / f"{arch}_{shape}_pod1.json"
+        r = json.loads(path.read_text())
+        chips = r["chips"]
+        expect(chips == 256 and r["mesh"] == "16x16", f"{path.name} mesh")
+        for k, v in r["per_device_bytes"].items():
+            expect(v * chips >= r["unsharded_bytes"][k],
+                   f"{arch} {shape}: {k} {v} x {chips} < "
+                   f"{r['unsharded_bytes'][k]}")
+        ratio = r["model_flops_ratio"]
+        expect(np.isfinite(ratio) and ratio > 0,
+               f"{arch} {shape}: model_flops_ratio {ratio}")
+        cells[f"{arch} {shape}"] = {
+            k: r[k] for k in ("microbatches", "memory_analysis",
+                              "per_device_bytes", "unsharded_bytes",
+                              "full_step_collectives", "roofline",
+                              "model_flops_ratio", "compile_s", "total_s")}
+    return {"cells": cells, "wall_s": wall_s,
+            "label": "modeled, 256 x H100 (fake process group)"}
+
+
+def run_mesh_path(torch, report, table, tshape, forest, X, addrs,
+                  predictions) -> dict:
+    """Phase 15: the mesh layer on a one-rank NCCL group (a local
+    store; destroyed at the end of (b)): (a) training through
+    ``jit_train_step``, (b) the fused session over ``shard_mesh(2)``,
+    then (c) the dry run's cells.  Returns the launch counts of (b)."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        rep = {"train": mesh_training(torch, report["train"])}
+        log(f"phase 15a: mesh training ok {json.dumps(rep['train'])}")
+        rep["session"], counts = mesh_session(
+            torch, table, tshape, forest, X, addrs, predictions)
+        log(f"phase 15b: fused session over the mesh ok "
+            f"{json.dumps(rep['session'])}")
+    finally:
+        dist.destroy_process_group()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        rep["dryrun"] = run_dryrun(out)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    report["mesh"] = rep
+    return counts
+
+
+def mesh_summary(rep: dict) -> dict:
+    """Phase 15's stdout line: the card's numbers, then the dry run's,
+    labelled modeled."""
+    cells = {}
+    for name, c in rep["dryrun"]["cells"].items():
+        rf = c["roofline"]
+        cells[name] = {
+            "argument_bytes_per_device":
+                c["memory_analysis"]["argument_size_in_bytes"],
+            "t_compute_s": rf["t_compute_s"], "t_memory_s": rf["t_memory_s"],
+            "t_collective_s": rf["t_collective_s"],
+            "bottleneck": rf["bottleneck"],
+            "model_flops_ratio": c["model_flops_ratio"]}
+    return {"train": {k: rep["train"][k] for k in (
+                "reduced_f32_loss_grad_norm", "losses", "losses_phase9",
+                "grad_norms", "grad_norms_phase9", "step_ms", "peak_gb")},
+            "session": {"queries": rep["session"]["queries"],
+                        "leaf_addrs_ms": rep["session"]["leaf_addrs_ms"],
+                        "launches": rep["session"]["launches"]},
+            "dryrun": {"label": rep["dryrun"]["label"], "cells": cells,
+                       "wall_s": rep["dryrun"]["wall_s"]},
+            "phase_s": rep["phase_s"]}
+
+
+# --------------------------------------------------------------------- #
 # Phase 8: times and bounds at the main path's shapes
 # --------------------------------------------------------------------- #
 
@@ -3828,6 +4147,11 @@ def main() -> int:
     card = card_line()
     log(f"phase 1: built in {report['build_s']:.1f} s on {card}")
 
+    return run_phases(torch, report, t0, card)
+
+
+def run_phases(torch, report: dict, t0: float, card: str) -> int:
+    """Phases 2-15 and the closing lines."""
     report["kernel_checks"] = check_kernels(torch)
     log(f"phase 2: {report['kernel_checks']} kernel checks passed")
 
@@ -3853,9 +4177,15 @@ def main() -> int:
     rows = measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau,
                    launches, report)
     report["kernels"] = rows
-    # phase 9 on a clean card: the LUT, the forest and the models go
-    del tsession, thandle, gsession, ghandle, table_ex, gbdt_ex, X, addrs
-    del predictions, lm_logits, lm_tau
+    # phase 9 on a clean card: the LUT, the forest and the models go;
+    # phase 15 keeps phases 3-4's host data (table, forest, instances,
+    # addresses, predictions) to hold its mesh path against
+    table, forest = table_ex.table, gbdt_ex.forest
+    tshape = {"shards": table_ex.num_shards, "chunks": table_ex.num_chunks,
+              "forest_chunks": gbdt_ex.num_chunks,
+              "queries": report["table"]["queries"]}
+    del tsession, thandle, gsession, ghandle, table_ex, gbdt_ex
+    del lm_logits, lm_tau
     free(torch)
     tlaunches = run_training_path(torch, report)
     expect(not any(tlaunches.values()),
@@ -3887,6 +4217,12 @@ def main() -> int:
         row["launches"] += vcounts[row["name"]]
     log(f"phase 14: verified serving ok in "
         f"{report['verified_serving']['phase_s']:.1f} s")
+    free(torch)
+    pcounts = run_mesh_path(torch, report, table, tshape, forest, X, addrs,
+                            predictions)
+    for row in rows:
+        row["launches"] += pcounts[row["name"]]
+    log(f"phase 15: mesh ok in {report['mesh']['phase_s']:.1f} s")
 
     report["card"] = card
     report["device"] = torch.cuda.get_device_name(0)
@@ -3902,6 +4238,7 @@ def main() -> int:
           flush=True)
     print("phase14 " + json.dumps(verified_summary(
         report["verified_serving"], report["machine"])), flush=True)
+    print("phase15 " + json.dumps(mesh_summary(report["mesh"])), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

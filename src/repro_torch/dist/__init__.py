@@ -1,5 +1,5 @@
-"""Distribution on one card: gradient compression and the compressed
-data-parallel step (the gradient all-reduce of the reference's mesh is
-the identity here), the flash decode of the long-context cell
-(``sp_decode``) and the GPipe schedule (``pipeline``) over a list of
-devices."""
+"""Distribution: partition specs on a ``torch.distributed`` device mesh
+(``sharding``), gradient compression and the compressed data-parallel
+step (``compression``, ``ddp``), the flash decode of the long-context
+cell (``sp_decode``) and the GPipe schedule (``pipeline``) over a list
+of devices."""

@@ -25,6 +25,16 @@ Row indices are resolved on the host (memoized per ``(plan, scalar)``)
 and passed as kernel operands, so one kernel serves every (feature,
 scalar) combination; ``launch_counts`` counts launches per query kind
 ``(num_ranges, disjunction)`` and per compound shape.
+
+Over a 1-D mesh (``mesh=``, e.g.
+:func:`repro_torch.dist.sharding.shard_mesh`; every rank of it builds
+the executor and runs every job) each of its ``d`` ranks holds its
+``num_shards / d`` record shards of the LUT and launches the same
+kernels on its block: the reference's ``shard_map``.  Its ``psum``
+becomes an all-reduce of the count, and the bitmap comes back through
+an all-gather of the ranks' blocks; the forest's instances are split
+over the ranks and their leaf addresses all-gathered.  A failing
+collective raises; nothing falls back to one rank.
 """
 
 from __future__ import annotations
@@ -53,6 +63,38 @@ from .ops import (
 )
 
 
+def _mesh_group(mesh):
+    """(this rank's index on a 1-D mesh, its size, its process group)."""
+    if mesh.ndim != 1:
+        raise ValueError(f"the fused executors take a 1-D mesh, got "
+                         f"{mesh.ndim} dimensions")
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the executor's mesh")
+    return mesh.get_local_rank(), mesh.size(), mesh.get_group()
+
+
+def _all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The ranks' ``t`` (equal shapes) concatenated along dim 0 in rank
+    order."""
+    import torch.distributed as dist
+
+    _, d, group = _mesh_group(mesh)
+    if d == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(d)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    import torch.distributed as dist
+
+    _, d, group = _mesh_group(mesh)
+    if d > 1:
+        dist.all_reduce(t, group=group)
+    return t
+
+
 class FusedTableExec:
     """Q1-Q5 and compound predicates over a record-sharded table.
 
@@ -60,10 +102,22 @@ class FusedTableExec:
     Records shard like the reference's ``QueryBatchExecutor``: ``per =
     ceil(n / num_shards)`` contiguous records per shard, so bitmap order
     is table order.  Padding columns encode ``B = 0``: the gt-side of
-    every range is 0 there, so popcounts need no masking."""
+    every range is 0 there, so popcounts need no masking.  With ``mesh``
+    (1-D, its size dividing ``num_shards``) this rank's LUT holds its
+    contiguous block of the shards, on the mesh's device type."""
 
     def __init__(self, table, num_shards: int, num_chunks: int,
-                 plans=None, device=None) -> None:
+                 plans=None, device=None, mesh=None) -> None:
+        self.mesh = mesh
+        shard_lo, shard_hi = 0, num_shards
+        if mesh is not None:
+            rank, d, _ = _mesh_group(mesh)
+            if num_shards % d:
+                raise ValueError(f"{num_shards} shards do not divide over "
+                                 f"{d} ranks")
+            shard_lo = rank * (num_shards // d)
+            shard_hi = shard_lo + num_shards // d
+            device = mesh.device_type
         self.device = resolve_device(device)
         self.table = table
         self.plan: ChunkPlan = make_plan(table.n_bits, num_chunks)
@@ -106,9 +160,9 @@ class FusedTableExec:
         self._base_c = base[self.num_features:2 * self.num_features]
         self.r_pad = base[-1] // (2 * self.num_features)
         words = round_up(-(-self.per // 32), 128)
-        self.lut = torch.empty((num_shards, base[-1], words),
+        self.lut = torch.empty((shard_hi - shard_lo, base[-1], words),
                                dtype=torch.int32, device=self.device)
-        for s in range(num_shards):
+        for s in range(shard_lo, shard_hi):
             lo = s * self.per
             for f, (col, cp) in enumerate(zip(table.features, self._cplans)):
                 v = np.zeros(self.per, np.uint32)
@@ -117,7 +171,7 @@ class FusedTableExec:
                 vt = torch.from_numpy(v.view(np.int32)).to(self.device)
                 for b, comp in ((self._base_n[f], False),
                                 (self._base_c[f], True)):
-                    self.lut[s, b:b + heights[f]] = encode_lut(
+                    self.lut[s - shard_lo, b:b + heights[f]] = encode_lut(
                         vt, cp, complement=comp)
         #: kernel launches per query kind / compound shape
         self.launch_counts: dict[tuple, int] = {}
@@ -166,10 +220,20 @@ class FusedTableExec:
         bm, cnt = fused_predicate_banked(self.lut, idx, self.num_chunks,
                                          len(ranges), disjunction)
         self._count((len(ranges), disjunction))
-        return bm, cnt.sum()
+        return bm, self._total(cnt)
+
+    def _total(self, cnt: torch.Tensor) -> torch.Tensor:
+        """The shards' counts summed (over the mesh: an all-reduce)."""
+        total = cnt.sum()
+        if self.mesh is not None:
+            total = _all_reduce_sum(total, self.mesh)
+        return total
 
     def _bitmap(self, bm: torch.Tensor) -> np.ndarray:
-        """[S, W] packed words -> bool [num_records] in table order."""
+        """[S, W] packed words (this rank's block of them on a mesh,
+        all-gathered) -> bool [num_records] in table order."""
+        if self.mesh is not None:
+            bm = _all_gather(bm, self.mesh)
         bits = unpack_bits(words_to_numpy(bm), self.per)      # [S, per]
         return bits.reshape(-1)[: self.table.num_records].astype(bool)
 
@@ -236,7 +300,7 @@ class FusedTableExec:
                 self.lut, idx, self.num_chunks, tuple(t_nr), tuple(t_disj),
                 conn)
             self._count(("compound", tuple(t_nr), tuple(t_disj), conn))
-            return int(cnt.sum()) if count else self._bitmap(bm)
+            return int(self._total(cnt)) if count else self._bitmap(bm)
         raise ValueError(f"unknown query {name!r}")
 
 
@@ -249,10 +313,17 @@ class FusedGbdtExec:
     plan's width; instance values then clamp to the plan max (``v <
     threshold`` keeps its truth value, every threshold fitting the
     plan).  Predictions go through :func:`assemble_leaves`, bit-exact
-    with the reference."""
+    with the reference.  With ``mesh`` (1-D) every rank holds the LUT
+    and masks and computes its contiguous block of the instances (the
+    batch padded to a multiple of the ranks with the first instance, as
+    the reference pads it), and the addresses are all-gathered."""
 
     def __init__(self, forest, num_chunks: int, plan=None,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
+        self.mesh = mesh
+        if mesh is not None:
+            _mesh_group(mesh)
+            device = mesh.device_type
         self.device = resolve_device(device)
         self.forest = forest
         thr = np.asarray(forest.thresholds, np.uint64).reshape(-1)
@@ -296,6 +367,14 @@ class FusedGbdtExec:
         X = np.asarray(X)
         if self._clamp:
             X = np.minimum(X.astype(np.int64), self.mx)
+        b = X.shape[0]
+        if self.mesh is not None:
+            rank, n_ranks, _ = _mesh_group(self.mesh)
+            b_pad = round_up(max(b, 1), n_ranks)
+            if b_pad != b:
+                X = np.concatenate([X, np.repeat(X[:1], b_pad - b, axis=0)])
+            per = b_pad // n_ranks
+            X = X[rank * per:(rank + 1) * per]
         cols = []
         for f in range(forest.num_features):
             lt, le = resolve_indices_banked(plan, X[:, f].astype(np.int64))
@@ -310,6 +389,8 @@ class FusedGbdtExec:
         for d in range(forest.depth):
             bit = (bm[:, self._node_word[:, d]] >> self._node_bit[:, d]) & 1
             addrs = (addrs << 1) | bit
+        if self.mesh is not None:
+            addrs = _all_gather(addrs, self.mesh)[:b]
         return addrs.to(torch.int32).cpu().numpy()
 
     def infer(self, X: np.ndarray) -> np.ndarray:

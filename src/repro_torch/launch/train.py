@@ -3,20 +3,51 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b \\
         --steps 200 --reduced [--device cpu] --checkpoint-dir /tmp/ckpt
 
-``--reduced`` runs the smoke-scale config and shape; without it the
-full config and shape run on the one device (where the reference
-launches its production mesh).  Prints the reference's JSON summary
-and log rows.
+``--reduced`` runs the smoke-scale config and shape on the host mesh,
+``(1, world_size)`` over whatever process group there is, as the
+reference does: one made here for this process alone (NCCL on the card,
+gloo with ``--device cpu``) unless ``torchrun`` started several.
+Without it the full config and shape run on the one device, with no
+mesh (the reference's production mesh needs 256 ranks:
+``python -m repro_torch.launch.dryrun`` models it).  Prints the
+reference's JSON summary and log rows.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.train import optimizer as O
 from repro_torch.train.loop import TrainConfig, run_training
+
+
+def _on_host_mesh(fn, device):
+    """``fn(make_host_mesh())``, with a process group made for it when
+    none is up: the environment's (``torchrun``) if it names a world,
+    else this process alone over a local store; one made here is
+    destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
+
+    made = not dist.is_initialized()
+    if made:
+        backend = "nccl" if resolve_device(device).type == "cuda" \
+            else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+    try:
+        return fn(make_host_mesh())
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -50,7 +81,12 @@ def main(argv: list[str] | None = None) -> None:
     opt_cfg = O.OptConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 1),
                           opt_dtype=cfg.opt_dtype)
-    summary = run_training(cfg, shape, tcfg, opt_cfg, device=args.device)
+    if args.reduced:
+        summary = _on_host_mesh(lambda mesh: run_training(
+            cfg, shape, tcfg, opt_cfg, device=args.device, mesh=mesh),
+            args.device)
+    else:
+        summary = run_training(cfg, shape, tcfg, opt_cfg, device=args.device)
     print(json.dumps({k: v for k, v in summary.items() if k != "log"},
                      indent=1))
     for row in summary["log"]:

@@ -21,13 +21,21 @@ weakly typed scalar (:func:`weak_scalar`).  Every
 ``*_init`` draws from an explicit ``torch.Generator`` with the
 reference's scales (on the meta device, shapes and dtypes only).
 
+Every ``*_init`` has a matching ``*_specs``: the reference's
+partition-spec tree of the same shape ("model" the tensor-parallel
+axis, "data" the FSDP one; :mod:`repro_torch.dist.sharding`).
+
 The reference's perf knobs (the "opt" variant of its dry-run) compute
 as there: ``attn_q_chunk`` runs attention over query blocks, each
 reading keys up to its causal (and window) horizon;
-``sp_decode`` decodes through
-:func:`repro_torch.dist.sp_decode.sp_flash_decode`.  Their sharding
-constraints, and all of ``attn_shard_heads`` and ``moe_dp_sharding``,
-are the identity on one card.
+``attn_shard_heads`` on a mesh expands the GQA K/V to every head and
+shards the scores ``P("data", "model")`` over (batch, heads) (off a
+mesh the grouped product computes the same);
+``moe_dp_sharding`` constrains the MoE dispatch buffer to
+``P(None, "data", "model")``; ``sp_decode`` decodes through
+:func:`repro_torch.dist.sp_decode.sp_flash_decode`.  The constraints
+redistribute a DTensor under :func:`repro_torch.dist.sharding.use_mesh`
+and are the identity otherwise.
 """
 
 from __future__ import annotations
@@ -40,6 +48,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (
+    P,
+    batch_spec,
+    constrain,
+    fit,
+    full,
+    head_spec,
+    is_dtensor,
+    known_axes,
+    mesh_of,
+    run_local,
+    split_dim,
+)
 
 Params = dict[str, Any]
 
@@ -80,6 +101,10 @@ def rmsnorm_init(cfg: ModelConfig, device: torch.device,
                  lead: tuple[int, ...] = ()) -> Params:
     return {"scale": torch.ones(lead + (cfg.d_model,), dtype=pdtype(cfg),
                                 device=device)}
+
+
+def rmsnorm_specs(cfg: ModelConfig) -> Params:
+    return {"scale": P(None)}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -127,6 +152,20 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     return p
 
 
+def attn_specs(cfg: ModelConfig) -> Params:
+    p = {
+        "wq": P("data", "model"),
+        "wk": P("data", "model"),
+        "wv": P("data", "model"),
+        "wo": P("model", "data"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = P("model")
+        p["bk"] = P("model")
+        p["bv"] = P("model")
+    return p
+
+
 @functools.lru_cache(maxsize=None)
 def _constant(value: float, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
@@ -139,7 +178,11 @@ def weak_scalar(x: torch.Tensor, value: float) -> torch.Tensor:
     typed scalar to the array's dtype first (``bf16 / math.sqrt(128)``
     divides by 11.3125), where PyTorch would apply the full float in
     float32 opmath -- and on the card turn a division by a host scalar
-    into a product with its reciprocal.  In float32 nothing changes."""
+    into a product with its reciprocal.  In float32 nothing changes.
+    (Cached for plain tensors; a subclass's -- a DTensor, a fake tensor
+    -- is made anew, since its mode may not outlive the call.)"""
+    if type(x) is not torch.Tensor:
+        return torch.tensor(float(value), dtype=x.dtype, device=x.device)
     return _constant(float(value), x.dtype, x.device)
 
 
@@ -174,7 +217,7 @@ def project_kv(cfg: ModelConfig, p: Params, x: torch.Tensor,
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     if rope_keys:
-        kh = k.reshape(*k.shape[:-1], kv, dh)
+        kh = split_dim(k, -1, (kv, dh))
         k = rope(kh, positions, cfg.rope_theta).reshape(k.shape)
     return k, v
 
@@ -184,16 +227,26 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
             ) -> torch.Tensor:
     """q: [B, Sq, H, dh]; k/v: [B, Sk, KV*dh]; mask: broadcastable to
     [B, KV, G, Sq, Sk].  Returns [B, Sq, H*dh].  Query head ``h`` reads
-    KV head ``h // G`` (the reshape to [B, Sq, KV, G, dh])."""
+    KV head ``h // G`` (the reshape to [B, Sq, KV, G, dh]).  DTensor
+    operands go through :func:`_attend_sharded`."""
+    if any(is_dtensor(t) for t in (q, k_flat, v_flat)):
+        return _attend_sharded(cfg, q, k_flat, v_flat, mask)
+    kv, dh = cfg.n_kv_heads, q.shape[-1]
+    return _attend_heads(cfg, q, split_dim(k_flat, -1, (kv, dh)),
+                         split_dim(v_flat, -1, (kv, dh)), mask)
+
+
+def _attend_heads(cfg: ModelConfig, q: torch.Tensor, kh: torch.Tensor,
+                  vh: torch.Tensor, mask: torch.Tensor | None
+                  ) -> torch.Tensor:
+    """:func:`_attend` on K/V split into heads, [B, Sk, KV, dh] (KV
+    read from ``kh``: a rank's heads on a mesh, where K/V expanded to
+    every head make G = 1)."""
     b, sq, h, dh = q.shape
-    kv = cfg.n_kv_heads
+    kv = kh.shape[2]
     g = h // kv
-    kh = k_flat.reshape(b, -1, kv, dh)
-    vh = v_flat.reshape(b, -1, kv, dh)
-    # ``attn_shard_heads`` only constrains the reference's scores to its
-    # mesh: the identity on one card
-    scores = torch.einsum("bskgh,btkh->bkgst",
-                          q.reshape(b, sq, kv, g, dh), kh)
+    scores = torch.einsum("bskgh,btkh->bkgst", q.reshape(b, sq, kv, g, dh),
+                          kh)
     scores = scale_scores(scores, dh)
     if not (cfg.attn_scores_bf16 and cfg.attn_softcap is None):
         scores = scores.float()
@@ -203,6 +256,43 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
     w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", w, vh)
     return out.reshape(b, sq, h * dh)
+
+
+def _attend_sharded(cfg: ModelConfig, q: torch.Tensor, k_flat: torch.Tensor,
+                    v_flat: torch.Tensor, mask: torch.Tensor | None
+                    ) -> torch.Tensor:
+    """:func:`_attend` of DTensors, tensor-parallel over heads: q, K and
+    V are laid out ``P(("pod", "data"), None, "model", None)`` (the
+    batch over the data-parallel axes, the heads over "model", each
+    dropped where it does not divide) and every rank attends its own
+    heads of its own sequences, with plain autograd on its pieces
+    (:func:`~repro_torch.dist.sharding.run_local`).  The heads are the
+    KV heads, so each rank's query heads read its own KV heads; under
+    ``attn_shard_heads`` K/V are first expanded to every query head, and
+    the heads sharded are the query heads, as the reference constrains
+    its scores."""
+    mesh = mesh_of(q, k_flat, v_flat)
+    b, sq, h, dh = q.shape
+    kv = cfg.n_kv_heads
+    kh, vh = (split_dim(t, -1, (kv, dh)) for t in (k_flat, v_flat))
+    if cfg.attn_shard_heads:
+        kh, vh = (_heads_replicated(t).repeat_interleave(h // kv, dim=2)
+                  for t in (kh, vh))
+    spec = head_spec(mesh, (b, 1, kh.shape[2], dh), 2)
+    return run_local(functools.partial(_attend_heads, cfg),
+                     (q, kh, vh, full(mask) if mask is not None else None),
+                     (spec, spec, spec, None), (P(spec[0], None, spec[2]),))
+
+
+def _heads_replicated(t: torch.Tensor) -> torch.Tensor:
+    """A [B, S, heads, dh] tensor with its head dimension unsharded."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if isinstance(q, Shard) and q.dim == 2 else q
+          for q in t.placements]
+    return t.redistribute(t.device_mesh, pl)
 
 
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -222,7 +312,7 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = q.reshape(*x.shape[:-1], h, dh)
+    q = split_dim(q, -1, (h, dh))
     if not cross:
         q = rope(q, q_pos, cfg.rope_theta)
     if k is None:
@@ -255,7 +345,7 @@ def project_qkv_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = rope(q.reshape(x.shape[0], 1, h, dh), posv, cfg.rope_theta)
+    q = rope(split_dim(q, -1, (h, dh)), posv, cfg.rope_theta)
     k1, v1 = project_kv(cfg, p, x, posv)
     return q, k1, v1
 
@@ -314,6 +404,13 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     return p
 
 
+def mlp_specs(cfg: ModelConfig) -> Params:
+    p = {"w_in": P("data", "model"), "w_out": P("model", "data")}
+    if cfg.mlp in ("silu_glu", "geglu"):
+        p["w_gate"] = P("data", "model")
+    return p
+
+
 def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w_in"].to(x.dtype)
     if cfg.mlp == "silu_glu":
@@ -341,6 +438,17 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
         "w_in": _normal((e, d, f), s_in, cfg, gen, device, lead),
         "w_gate": _normal((e, d, f), s_in, cfg, gen, device, lead),
         "w_out": _normal((e, f, d), s_out, cfg, gen, device, lead),
+    }
+
+
+def moe_specs(cfg: ModelConfig) -> Params:
+    # experts unsharded (8/16/40 don't divide the 16-way model axis);
+    # TP inside each expert's d_ff, FSDP on d_model
+    return {
+        "router": P(None, None),
+        "w_in": P(None, "data", "model"),
+        "w_gate": P(None, "data", "model"),
+        "w_out": P(None, "model", "data"),
     }
 
 
@@ -376,36 +484,64 @@ def moe_dispatch(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor,
     return gates, flat_e, slot, slot < cap, cap
 
 
+def _replicated_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (the same on every rank) as a replicated DTensor on
+    ``like``'s mesh when ``like`` is a DTensor; else ``t``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not is_dtensor(like):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
         capacity_factor: float | None = None) -> torch.Tensor:
     """Top-k routing with a fixed expert capacity (GShard-style, token
     dropping), with the reference's static shapes: every expert runs
     over its ``cap`` slots, empty ones zero.  A token whose slot is past
-    ``cap`` gets nothing from that expert.  ``moe_dp_sharding`` only
-    constrains the reference's dispatch buffer to its mesh: the identity
-    on one card."""
+    ``cap`` gets nothing from that expert.
+
+    On a DTensor ``x`` the routing, the dispatch into the buffer and the
+    combine run on the whole token axis, the same on every rank (one
+    all-gather of ``x`` and one of the experts' output), so ``cap`` and
+    the first-come slot order are the whole batch's, as under the
+    reference's GSPMD: a shard-local dispatch would drop other tokens.
+    The expert products run on the distributed weights; under
+    ``moe_dp_sharding`` the buffer is constrained to
+    ``P(None, "data", "model")`` first."""
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     if capacity_factor is None:
         capacity_factor = cfg.moe.capacity_factor
     b, s, d = x.shape
     n = b * s
-    xf = x.reshape(n, d)
-    gates, flat_e, slot, keep, cap = moe_dispatch(cfg, p["router"], xf,
-                                                  capacity_factor)
+    xf = full(x).reshape(n, d)
+    gates, flat_e, slot, keep, cap = moe_dispatch(
+        cfg, full(p["router"]), xf, capacity_factor)
     # the kept (expert, slot) pairs are distinct: each row is assigned
     # once, and every dropped assignment lands in one extra row, cut off
     dest = torch.where(keep, flat_e * cap + slot, e * cap)
-    buf = x.new_zeros((e * cap + 1, d))
+    buf = xf.new_zeros((e * cap + 1, d))
     buf[dest] = xf.repeat_interleave(k, 0)
-    buf = buf[:-1].view(e, cap, d)
+    buf = _replicated_like(buf[:-1].view(e, cap, d), x)
+    if cfg.moe_dp_sharding:
+        buf = constrain(buf, P(None, "data", "model"))
     hin = torch.einsum("ecd,edf->ecf", buf, p["w_in"].to(x.dtype))
     hg = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(x.dtype))
     h = F.silu(hg) * hin
-    out = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(x.dtype))
+    out = full(torch.einsum("ecf,efd->ecd", h, p["w_out"].to(x.dtype)))
     tok_out = out[flat_e, torch.where(keep, slot, 0)]          # [N*K, D]
     tok_out = torch.where(keep[:, None], tok_out, 0)
     tok_out = tok_out.reshape(n, k, d) * gates[..., None].to(x.dtype)
-    return tok_out.sum(dim=1).reshape(b, s, d)
+    y = tok_out.sum(dim=1).reshape(b, s, d)
+    if not is_dtensor(x):
+        return y
+    # back to x's sharding (its pieces of the whole result: no collective)
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if q.is_partial() else q for q in x.placements]
+    return _replicated_like(y, x).redistribute(x.device_mesh, pl)
 
 
 # --------------------------- embeddings -------------------------------- #
@@ -420,19 +556,61 @@ def embed_init(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
+def embed_specs(cfg: ModelConfig) -> Params:
+    p = {"tok": P("model", "data")}
+    if not cfg.tie_embeddings:
+        p["head"] = P("data", "model")
+    return p
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
 def embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor
           ) -> torch.Tensor:
-    x = p["tok"].to(cdtype(cfg))[tokens.long()]
+    """The token embeddings.  On a mesh each rank looks up its own
+    sequences in the whole table (gathered), its gradient summed over
+    the batch's ranks."""
+    table = p["tok"].to(cdtype(cfg))
+    mesh = mesh_of(table, tokens)
+    if mesh is None:
+        x = _lookup(table, tokens)
+    else:
+        dp = batch_spec(mesh, tuple(tokens.shape))[0]
+        x = run_local(_lookup, (table, tokens), (P(None, None), P(dp, None)),
+                      (P(dp, None, None),))
     if cfg.tie_embeddings:
         x = x * weak_scalar(x, math.sqrt(cfg.d_model))   # gemma-style
     return x
 
 
+def _head_product(x: torch.Tensor, w: torch.Tensor, tied: bool
+                  ) -> torch.Tensor:
+    if tied:
+        return torch.einsum("bsd,vd->bsv", x, w)
+    return torch.einsum("bsd,dv->bsv", x, w)
+
+
 def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, p["tok"].to(x.dtype))
+    """Logits [B, S, V_pad] float32.  On a mesh the product is
+    column-parallel: each rank its sequences against its "model" slice of
+    the vocab (DTensor's einsum would gather the whole vocab onto every
+    rank and repeat the product there)."""
+    tied = cfg.tie_embeddings
+    w = (p["tok"] if tied else p["head"]).to(x.dtype)
+    mesh = mesh_of(x, w)
+    if mesh is None:
+        logits = _head_product(x, w, tied)
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, p["head"].to(x.dtype))
+        vdim = 0 if tied else 1
+        wspec = fit(known_axes(P("model", None) if tied
+                               else P(None, "model"), mesh),
+                    tuple(w.shape), mesh)
+        dp = batch_spec(mesh, tuple(x.shape))[0]
+        logits = run_local(
+            functools.partial(_head_product, tied=tied), (x, w),
+            (P(dp, None, None), wspec), (P(dp, None, wspec[vdim]),))
     logits = _softcap(logits.float(), cfg.logit_softcap)
     # mask the vocab-padding logits (Megatron-style padded vocab)
     vp = logits.shape[-1]

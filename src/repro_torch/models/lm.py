@@ -13,12 +13,20 @@ runs under ``torch.utils.checkpoint`` (the reference's
 the backward, and the numbers stay the same.
 
 Public surface:
-  init_params                       -- params, from a torch.Generator
+  init_params / param_specs         -- params, from a torch.Generator, and
+                                       the matching partition-spec tree
   forward_logits                    -- full-sequence logits (tokens or
                                        embeds, + enc_embeds for enc-dec)
   forward_loss                      -- training loss, through autograd
   prefill                           -- forward + KV/state cache construction
   init_cache / decode_step          -- one-token decode (cache in place)
+  cache_specs                       -- the partition-spec tree of a cache
+
+On a mesh the same functions run over DTensor parameters and batches
+(:mod:`repro_torch.train.train_step`), under
+``torch.distributed.tensor.experimental.implicit_replication`` so the
+plain tensors they make (positions, masks, RoPE tables) join as
+replicated.
 """
 
 from __future__ import annotations
@@ -29,6 +37,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (
+    DP_AXES,
+    P,
+    constrain,
+    gather_dp,
+    is_dtensor,
+)
 from repro_torch.kernels.common import resolve_device
 
 from . import layers as L
@@ -36,6 +51,15 @@ from . import ssm as S
 
 Params = dict[str, Any]
 ATTN_KINDS = ("attn", "local", "global")
+#: the residual stream [B, S, D] on a mesh, at every block's input and
+#: its norm2: the batch over the data-parallel axes, the rest replicated.
+#: DTensor otherwise carries whatever layout an operand had (the
+#: embedding table's d_model on "data", a sequence split) from block to
+#: block.
+BATCH_SPEC = P(DP_AXES, None, None)
+#: logits [B, S, V] on a mesh: the batch over the data-parallel axes,
+#: the vocab over "model" (the loss reduces over it in place)
+LOGITS_SPEC = P(DP_AXES, None, "model")
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> int | None:
@@ -104,6 +128,28 @@ def _block_init(cfg: ModelConfig, kind: str, idx: int, gen: torch.Generator,
     return p
 
 
+def _block_specs(cfg: ModelConfig, kind: str, idx: int,
+                 with_cross: bool = False) -> Params:
+    p: Params = {"norm1": L.rmsnorm_specs(cfg)}
+    if kind in ATTN_KINDS:
+        p["attn"] = L.attn_specs(cfg)
+    elif kind == "mamba":
+        p["mamba"] = S.mamba_specs(cfg)
+    elif kind == "rwkv":
+        p["rwkv"] = S.rwkv_specs(cfg)
+    if with_cross:
+        p["norm_x"] = L.rmsnorm_specs(cfg)
+        p["cross"] = L.attn_specs(cfg)
+    p["norm2"] = L.rmsnorm_specs(cfg)
+    if kind == "rwkv":
+        p["ffn"] = S.rwkv_ffn_specs(cfg)
+    elif _is_moe_layer(cfg, idx):
+        p["moe"] = L.moe_specs(cfg)
+    else:
+        p["mlp"] = L.mlp_specs(cfg)
+    return p
+
+
 def _stack_periods(cfg: ModelConfig, gen: torch.Generator,
                    device: torch.device, num_periods: int,
                    with_cross: bool = False) -> Params:
@@ -134,6 +180,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def _add_period_dim(tree: Params) -> Params:
+    return {k: _add_period_dim(v) if isinstance(v, dict)
+            else P(*((None,) + tuple(v))) for k, v in tree.items()}
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The partition-spec tree matching :func:`init_params`: the
+    reference's, with the period axis of every stacked leaf replicated."""
+    period = {f"block{i}": _block_specs(cfg, kind, i, with_cross=cfg.enc_dec)
+              for i, kind in enumerate(cfg.block_pattern)}
+    specs: Params = {
+        "embed": L.embed_specs(cfg),
+        "final_norm": L.rmsnorm_specs(cfg),
+        "periods": _add_period_dim(period),
+    }
+    if cfg.enc_dec:
+        enc = {"block0": _block_specs(cfg, "attn", 0)}
+        specs["enc_periods"] = _add_period_dim(enc)
+        specs["enc_final_norm"] = L.rmsnorm_specs(cfg)
+    return specs
+
+
 # ------------------------------------------------------------------ #
 # Block pieces shared by the forward, prefill and decode
 # ------------------------------------------------------------------ #
@@ -153,6 +221,7 @@ def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """norm2 and the MLP, MoE or RWKV channel mix, with the residual.
     Returns (x, the channel mix's new last row; None for the others)."""
+    x = constrain(x, BATCH_SPEC)
     h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     if kind == "rwkv":
         y2, xl = S.rwkv_channel_mix(cfg, p["ffn"], h2, x_last=x_last)
@@ -169,6 +238,7 @@ def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 def _apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, enc_out: Params | None = None,
                  causal: bool = True) -> torch.Tensor:
+    x = constrain(x, BATCH_SPEC)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ATTN_KINDS:
         if causal:
@@ -182,6 +252,18 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, _, _ = S.rwkv_time_mix(cfg, p["rwkv"], h)
     x = _cross(cfg, p, x + y, positions, enc_out)
     return _ffn(cfg, kind, p, x)[0]
+
+
+def period_fn(cfg: ModelConfig, pparams: Params, x: torch.Tensor,
+              positions: torch.Tensor, enc_out: Params | None = None
+              ) -> torch.Tensor:
+    """One period of blocks over the full sequence (the forward's body;
+    the dry run also counts it alone)."""
+    pparams = gather_dp(pparams)
+    for j, kind in enumerate(cfg.block_pattern):
+        x = _apply_block(cfg, kind, pparams[f"block{j}"], x, positions,
+                         enc_out=enc_out)
+    return x
 
 
 def _sinusoid(s: int, d: int, dtype: torch.dtype,
@@ -201,8 +283,8 @@ def _encode(cfg: ModelConfig, params: Params, embeds: torch.Tensor
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(x, pp):
-        return _apply_block(cfg, "attn", pp["block0"], x, positions,
-                            causal=False)
+        return _apply_block(cfg, "attn", gather_dp(pp["block0"]), x,
+                            positions, causal=False)
 
     x = _scan_periods(cfg, body, x, _unbind(params["enc_periods"],
                                             cfg.enc_layers))
@@ -213,7 +295,7 @@ def _cross_kv(cfg: ModelConfig, params: Params, enc_x: torch.Tensor
               ) -> Params:
     """Per-decoder-period cross K/V [P, B, Se, KV*dh] (flat layout) of
     the encoder output."""
-    p = params["periods"]["block0"]["cross"]
+    p = gather_dp(params["periods"]["block0"]["cross"])
     return {name: torch.stack([enc_x @ w[i].to(enc_x.dtype)
                                for i in range(cfg.num_periods)])
             for name, w in (("k", p["wk"]), ("v", p["wv"]))}
@@ -232,6 +314,21 @@ def _scan_periods(cfg: ModelConfig, body, x: torch.Tensor,
     return x
 
 
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    return constrain(L.embed(cfg, gather_dp(params["embed"]), tokens),
+                     BATCH_SPEC)
+
+
+def _head(cfg: ModelConfig, params: Params, x: torch.Tensor
+          ) -> torch.Tensor:
+    """The final norm and the LM head; on a mesh the logits keep the
+    vocab over "model" (:data:`LOGITS_SPEC`)."""
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return constrain(L.lm_head(cfg, gather_dp(params["embed"]), x),
+                     LOGITS_SPEC)
+
+
 def _inputs(cfg: ModelConfig, params: Params, batch: Params
             ) -> tuple[torch.Tensor, Params | None]:
     """The decoder's input activations and, for an encoder-decoder, the
@@ -239,10 +336,11 @@ def _inputs(cfg: ModelConfig, params: Params, batch: Params
     if "embeds" in batch:
         x = batch["embeds"].to(L.cdtype(cfg))
     else:
-        x = L.embed(cfg, params["embed"], batch["tokens"])
+        x = _embed(cfg, params, batch["tokens"])
     cross = None
     if cfg.enc_dec:
-        enc_x = _encode(cfg, params, batch["enc_embeds"].to(x.dtype))
+        enc = constrain(batch["enc_embeds"].to(x.dtype), BATCH_SPEC)
+        enc_x = _encode(cfg, params, enc)
         cross = _cross_kv(cfg, params, enc_x)
     return x, cross
 
@@ -257,17 +355,37 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: Params
     n = cfg.num_periods
 
     def body(x, pp, ckv=None):
-        for j, kind in enumerate(cfg.block_pattern):
-            x = _apply_block(cfg, kind, pp[f"block{j}"], x, positions,
-                             enc_out=ckv)
-        return x
+        return period_fn(cfg, pp, x, positions, enc_out=ckv)
 
     args = _unbind(params["periods"], n)
     if cross is not None:
         args = list(zip(args, _unbind(cross, n)))
     x = _scan_periods(cfg, body, x, args)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.lm_head(cfg, params["embed"], x)
+    return _head(cfg, params, x)
+
+
+def logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last axis.  On a DTensor it is
+    spelled out -- max, exp, sum, log -- so each reduction runs over the
+    vocab where it is sharded and joins the ranks' partial results,
+    rather than DTensor moving the vocab whole onto each rank (and the
+    sequence over "model" in its place)."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.detach().amax(-1, keepdim=True)
+    return (logits - m).exp().sum(-1).log() + m[..., 0]
+
+
+def gold_logits(logits: torch.Tensor, labels: torch.Tensor
+                ) -> torch.Tensor:
+    """``logits[..., labels]`` along the last axis (labels >= 0).  On a
+    DTensor, the one nonzero term of a sum over the vocab, which stays
+    sharded (DTensor has no gather along a sharded axis); x + 0 + ... +
+    0 is x exactly."""
+    if not is_dtensor(logits):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=labels.device)
+    return torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
 
 
 def forward_loss(cfg: ModelConfig, params: Params, batch: Params
@@ -277,8 +395,8 @@ def forward_loss(cfg: ModelConfig, params: Params, batch: Params
     positions are left out of the sum and of the count."""
     logits = forward_logits(cfg, params, batch)       # [B, S, V] f32
     labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    logz = logsumexp(logits)
+    gold = gold_logits(logits, labels.clamp(min=0))
     mask = (labels >= 0).float()
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp(min=1.0)
@@ -327,6 +445,34 @@ def init_cache(cfg: ModelConfig, b: int, s_max: int, device=None) -> Params:
             for i, kind in enumerate(cfg.block_pattern)}
 
 
+def cache_specs(cfg: ModelConfig) -> Params:
+    """The partition-spec tree matching :func:`init_cache`: batch on
+    "data", heads / channels on "model" (the reference's; "model" on a
+    head dimension that does not divide is split unevenly by
+    ``constrain(..., allow_uneven=True)`` and dropped by ``fit``)."""
+    def spec_for(kind):
+        if kind == "local":
+            return {"k": P(None, "data", None, "model"),
+                    "v": P(None, "data", None, "model"),
+                    "kpos": P(None, None)}
+        if kind in ("attn", "global"):
+            if cfg.sp_decode:
+                # sequence-parallel decode: cache S over every axis
+                return {"k": P(None, None, ("data", "model"), None),
+                        "v": P(None, None, ("data", "model"), None)}
+            return {"k": P(None, "data", None, "model"),
+                    "v": P(None, "data", None, "model")}
+        if kind == "mamba":
+            return {"ssm": P(None, "data", "model", None),
+                    "conv": P(None, "data", None, "model")}
+        if kind == "rwkv":
+            return {"state": P(None, "data", "model", None, None),
+                    "x_tm": P(None, "data", None),
+                    "x_cm": P(None, "data", None)}
+    return {f"block{i}": spec_for(kind)
+            for i, kind in enumerate(cfg.block_pattern)}
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 tokens: torch.Tensor, pos: int, cross: Params | None = None
                 ) -> tuple[torch.Tensor, Params]:
@@ -336,36 +482,50 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     cache; this writes the step's K/V rows (and rolling positions) and
     the new SSM/RWKV states into ``cache`` in place and returns it."""
     pos = int(pos)
-    x = L.embed(cfg, params["embed"], tokens)
+    x = _embed(cfg, params, tokens)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     for i in range(cfg.num_periods):
-        pp = _period(params["periods"], i)
-        ckv = _period(cross, i) if cross is not None else None
-        for j, kind in enumerate(cfg.block_pattern):
-            p, c = pp[f"block{j}"], _period(cache[f"block{j}"], i)
-            h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-            if kind in ATTN_KINDS:
-                y, _, _, _ = L.attention_decode(
-                    cfg, p["attn"], h, c["k"], c["v"], pos,
-                    window=_window_for(cfg, kind), kpos=c.get("kpos"))
-            elif kind == "mamba":
-                y, ssm, conv = S.mamba_block(cfg, p["mamba"], h,
-                                             ssm_state=c["ssm"],
-                                             conv_state=c["conv"])
-                c["ssm"].copy_(ssm)
-                c["conv"].copy_(conv)
-            elif kind == "rwkv":
-                y, st, xl = S.rwkv_time_mix(cfg, p["rwkv"], h,
-                                            state=c["state"],
-                                            x_last=c["x_tm"])
-                c["state"].copy_(st)
-                c["x_tm"].copy_(xl)
-            x = _cross(cfg, p, x + y, posv, ckv)
-            x, xl2 = _ffn(cfg, kind, p, x, x_last=c.get("x_cm"))
-            if xl2 is not None:
-                c["x_cm"].copy_(xl2)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.lm_head(cfg, params["embed"], x), cache
+        x = period_decode(cfg, _period(params["periods"], i),
+                          _period(cache, i), x, pos,
+                          _period(cross, i) if cross is not None else None,
+                          posv)
+    return _head(cfg, params, x), cache
+
+
+def period_decode(cfg: ModelConfig, pparams: Params, pcache: Params,
+                  x: torch.Tensor, pos: int, ckv: Params | None = None,
+                  posv: torch.Tensor | None = None) -> torch.Tensor:
+    """One period of :func:`decode_step`: ``x`` [B, 1, D] through its
+    blocks at ``pos``, the period's cache slices written in place
+    (``posv``: ``pos`` as a tensor, made here when not given)."""
+    if posv is None:
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    pparams = gather_dp(pparams)
+    for j, kind in enumerate(cfg.block_pattern):
+        p, c = pparams[f"block{j}"], pcache[f"block{j}"]
+        x = constrain(x, BATCH_SPEC)
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        if kind in ATTN_KINDS:
+            y, _, _, _ = L.attention_decode(
+                cfg, p["attn"], h, c["k"], c["v"], pos,
+                window=_window_for(cfg, kind), kpos=c.get("kpos"))
+        elif kind == "mamba":
+            y, ssm, conv = S.mamba_block(cfg, p["mamba"], h,
+                                         ssm_state=c["ssm"],
+                                         conv_state=c["conv"])
+            c["ssm"].copy_(ssm)
+            c["conv"].copy_(conv)
+        elif kind == "rwkv":
+            y, st, xl = S.rwkv_time_mix(cfg, p["rwkv"], h,
+                                        state=c["state"],
+                                        x_last=c["x_tm"])
+            c["state"].copy_(st)
+            c["x_tm"].copy_(xl)
+        x = _cross(cfg, p, x + y, posv, ckv)
+        x, xl2 = _ffn(cfg, kind, p, x, x_last=c.get("x_cm"))
+        if xl2 is not None:
+            c["x_cm"].copy_(xl2)
+    return x
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Params,
@@ -385,11 +545,12 @@ def prefill(cfg: ModelConfig, params: Params, batch: Params,
     total = max_len or s
     caches = []
     for i in range(cfg.num_periods):
-        pp = _period(params["periods"], i)
+        pp = gather_dp(_period(params["periods"], i))
         ckv = _period(cross, i) if cross is not None else None
         pcache = {}
         for j, kind in enumerate(cfg.block_pattern):
             p = pp[f"block{j}"]
+            x = constrain(x, BATCH_SPEC)
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
             if kind in ATTN_KINDS:
                 win = _window_for(cfg, kind)
@@ -427,5 +588,4 @@ def prefill(cfg: ModelConfig, params: Params, batch: Params,
                 pc["x_cm"] = xl2
             pcache[f"block{j}"] = pc
         caches.append(pcache)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.lm_head(cfg, params["embed"], x), _stack(caches)
+    return _head(cfg, params, x[:, -1:]), _stack(caches)

@@ -15,6 +15,7 @@ Mamba (S6): h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t;  y = C_t h + D x.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -23,7 +24,19 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
+from repro_torch.dist.sharding import (
+    DP_AXES,
+    P,
+    constrain,
+    head_spec,
+    merge_dims,
+    mesh_of,
+    run_local,
+    split_dim,
+)
+
 from .layers import _normal, pdtype
+from .loops import repeat
 
 Params = dict[str, Any]
 
@@ -55,6 +68,22 @@ def rwkv_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     return p
 
 
+def rwkv_specs(cfg: ModelConfig) -> Params:
+    return {
+        "mu": P(None, None),
+        "w_r": P("data", "model"),
+        "w_k": P("data", "model"),
+        "w_v": P("data", "model"),
+        "w_g": P("data", "model"),
+        "w_o": P("model", "data"),
+        "w_dec_a": P("data", None),
+        "w_dec_b": P(None, "model"),
+        "dec_bias": P("model"),
+        "u": P(None, None),   # 40 heads never divide the 16-way axis
+        "ln_x": P(None),
+    }
+
+
 def _rwkv_rkvwg(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 x_prev: torch.Tensor):
     """Project token-shifted inputs to r,k,v,w,g.  x: [B, S, D];
@@ -75,8 +104,7 @@ def _rwkv_rkvwg(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _heads(x: torch.Tensor, hd: int) -> torch.Tensor:
-    b, s, d = x.shape
-    return x.reshape(b, s, d // hd, hd)
+    return split_dim(x, -1, (x.shape[-1] // hd, hd))
 
 
 def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -95,29 +123,50 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     rh, kh, vh = _heads(r, hd), _heads(k, hd), _heads(v, hd)
     wh = _heads(w.float(), hd)
     u = p["u"].float()
-    chunk = cfg.rwkv_chunk
-    if chunk and s % chunk == 0 and state is None and s > chunk:
-        # chunk-parallel GLA form: matmul-dominant, same math
-        yh, state = _rwkv_chunked(rh, kh, vh, wh, u, chunk)
-        y = yh.reshape(b, s, d).to(x.dtype)
+    mesh = mesh_of(rh, kh, vh, wh, u, state)
+    if mesh is None:
+        yh, state = _rwkv_scan(rh, kh, vh, wh, u, state, cfg.rwkv_chunk)
     else:
-        st = x.new_zeros((b, h, hd, hd), dtype=torch.float32) \
-            if state is None else state
-        rf, kf, vf = rh.float(), kh.float(), vh.float()
-        uk = u[None, :, :, None]
-        ys = []
-        for t in range(s):
-            kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]   # [B,H,hd,hd]
-            ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], uk * kv + st))
-            st = wh[:, t, :, :, None] * st + kv
-        state = st
-        y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
+        # each rank its sequences' heads: batch over "data", heads over
+        # "model" where they divide
+        spec = head_spec(mesh, (b, s, h, hd), 2)
+        st_spec = P(spec[0], spec[2], None, None)
+        yh, state = run_local(
+            functools.partial(_rwkv_scan, chunk=cfg.rwkv_chunk),
+            (rh, kh, vh, wh, u, state),
+            (spec,) * 4 + (P(spec[2], None), st_spec), (spec, st_spec))
+    y = merge_dims(yh, (b, s, d)).to(x.dtype)
     # group-norm per head (ln_x), then output gate + projection
-    y32 = y.float().reshape(b, s, h, hd)
+    y32 = split_dim(y.float(), -1, (h, hd))
     y32 = y32 * torch.rsqrt((y32 * y32).mean(-1, keepdim=True) + 1e-5)
-    y = (y32.reshape(b, s, d) * p["ln_x"].float()).to(x.dtype)
+    y = (merge_dims(y32, (b, s, d)) * p["ln_x"].float()).to(x.dtype)
     y = (y * g) @ p["w_o"].to(x.dtype)
     return y, state, x[:, -1]
+
+
+def _rwkv_scan(rh, kh, vh, wh, u, state, chunk: int | None):
+    """The time-mix recurrence over [B, S, H, hd] heads: (y [B, S, H, hd]
+    float32, final state [B, H, hd, hd]) from ``state`` (zeros if None),
+    in the chunk-parallel form when ``chunk`` divides S, no state is
+    carried and S > chunk, else one time step after another."""
+    b, s, h, hd = rh.shape
+    if chunk and s % chunk == 0 and state is None and s > chunk:
+        # chunk-parallel GLA form: matmul-dominant, same math
+        return _rwkv_chunked(rh, kh, vh, wh, u, chunk)
+    st = rh.new_zeros((b, h, hd, hd), dtype=torch.float32) \
+        if state is None else state
+    rf, kf, vf = rh.float(), kh.float(), vh.float()
+    uk = u[None, :, :, None]
+
+    def step(t):
+        nonlocal st
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]   # [B,H,hd,hd]
+        y = torch.einsum("bhk,bhkv->bhv", rf[:, t], uk * kv + st)
+        st = wh[:, t, :, :, None] * st + kv
+        return y
+
+    ys = repeat(s, step)
+    return torch.stack(ys, dim=1), st
 
 
 def rwkv_ffn_init(cfg: ModelConfig, gen: torch.Generator,
@@ -130,6 +179,11 @@ def rwkv_ffn_init(cfg: ModelConfig, gen: torch.Generator,
         "w_v": _normal((f, d), 1.0 / math.sqrt(f), cfg, gen, device, lead),
         "w_r": _normal((d, d), 1.0 / math.sqrt(d), cfg, gen, device, lead),
     }
+
+
+def rwkv_ffn_specs(cfg: ModelConfig) -> Params:
+    return {"mu": P(None, None), "w_k": P("data", "model"),
+            "w_v": P("model", "data"), "w_r": P("data", "model")}
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -176,6 +230,20 @@ def mamba_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     }
 
 
+def mamba_specs(cfg: ModelConfig) -> Params:
+    return {
+        "in_proj": P("data", "model"),
+        "conv_w": P(None, "model"),
+        "conv_b": P("model"),
+        "x_proj": P("model", None),
+        "dt_proj": P(None, "model"),
+        "dt_bias": P("model"),
+        "A_log": P("model", None),
+        "D": P("model"),
+        "out_proj": P("model", "data"),
+    }
+
+
 def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 ssm_state: torch.Tensor | None = None,
                 conv_state: torch.Tensor | None = None):
@@ -195,7 +263,8 @@ def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     xc = sum(xpad[:, i:i + s] * cw[i] for i in range(dconv))
     xc = F.silu(xc + p["conv_b"].to(x.dtype))
     # input-dependent SSM params
-    proj = xc @ p["x_proj"].to(x.dtype)
+    # row-parallel on a mesh: the small projection is summed whole
+    proj = constrain(xc @ p["x_proj"].to(x.dtype), P(DP_AXES, None, None))
     dtr = proj.shape[-1] - 2 * n
     dt, bmat, cmat = torch.split(proj, [dtr, n, n], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"].to(x.dtype)
@@ -203,17 +272,38 @@ def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     a = -torch.exp(p["A_log"])                         # [din, N]
     da = torch.exp(dt[..., None] * a)                  # [B, S, din, N]
     dbx = (dt * xc.float())[..., None] * bmat.float()[:, :, None, :]
-    h = x.new_zeros((b, din, n), dtype=torch.float32) \
-        if ssm_state is None else ssm_state
     cf = cmat.float()
-    ys = []
-    for t in range(s):
-        h = da[:, t] * h + dbx[:, t]                   # [B, din, N]
-        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
-    y = torch.stack(ys, dim=1).to(x.dtype)             # [B, S, din]
+    mesh = mesh_of(da, dbx, cf, ssm_state)
+    if mesh is None:
+        y, h = _mamba_scan(da, dbx, cf, ssm_state)
+    else:
+        # each rank its sequences' channels: batch over "data", d_inner
+        # over "model" where it divides
+        spec = head_spec(mesh, (b, s, din, n), 2)
+        h_spec = P(spec[0], spec[2], None)
+        y, h = run_local(_mamba_scan, (da, dbx, cf, ssm_state),
+                         (spec, spec, P(spec[0], None, None), h_spec),
+                         (P(spec[0], None, spec[2]), h_spec))
+    y = y.to(x.dtype)                                  # [B, S, din]
     y = y + xc * p["D"].to(x.dtype)
     y = y * F.silu(z)
     return y @ p["out_proj"].to(x.dtype), h, new_conv_state
+
+
+def _mamba_scan(da, dbx, cf, h):
+    """The selective scan: h_t = da_t * h_{t-1} + dbx_t, y_t = h_t . C_t,
+    over da/dbx [B, S, din, N] and C [B, S, N] float32 from ``h`` (zeros
+    if None).  Returns (y [B, S, din] float32, final h [B, din, N])."""
+    b, s, din, n = da.shape
+    if h is None:
+        h = da.new_zeros((b, din, n))
+
+    def step(t):
+        nonlocal h
+        h = da[:, t] * h + dbx[:, t]                   # [B, din, N]
+        return torch.einsum("bdn,bn->bd", h, cf[:, t])
+
+    return torch.stack(repeat(s, step), dim=1), h
 
 
 # ------------------- chunked-parallel RWKV-6 (GLA form) ------------------- #

@@ -19,9 +19,14 @@ A bfloat16 leaf goes to disk as its 16-bit patterns under the header
 NumPy writes for the reference's bfloat16 (``descr`` ``<V2``, a 2-byte
 void), with ``"bfloat16"`` in the manifest: the files are the
 reference's byte for byte, and no ``ml_dtypes`` is needed.  Restore puts
-each leaf on the device of the matching leaf of ``like``; the
-reference's ``shardings`` have no meaning on one card.  An error of the
-writer thread is raised by the next ``wait()``.
+each leaf on the device of the matching leaf of ``like``, or, given
+``shardings`` (a :func:`repro_torch.dist.sharding.shardings` tree),
+distributes it as they say, on the mesh that saved it or another.  An
+error of the writer thread is raised by the next ``wait()``.
+
+A tree of DTensors is saved whole: every rank gathers each leaf (a
+collective), rank 0 of the default group writes, and ``wait()`` ends in
+a barrier, so no rank reads a checkpoint before it is published.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import distribute, full, is_dtensor
 
 from .tree import flatten, unflatten
 
@@ -86,16 +93,25 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._barrier = False
 
     # ------------------------------ save ------------------------------ #
     def save(self, step: int, tree: Params, blocking: bool = False) -> None:
         """Copy ``tree`` to the host now, and write it as checkpoint
         ``step`` on the writer thread."""
         self.wait()
-        flat = {k: to_numpy(v) for k, v in flatten(tree).items()}
-        self._thread = threading.Thread(
-            target=self._write, args=(step, flat), daemon=True)
-        self._thread.start()
+        leaves = flatten(tree)
+        flat = {k: to_numpy(full(v)) for k, v in leaves.items()}
+        if any(is_dtensor(v) for v in leaves.values()):
+            import torch.distributed as dist
+
+            self._barrier = True
+            if dist.get_rank() != 0:
+                flat = None
+        if flat is not None:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, flat), daemon=True)
+            self._thread.start()
         if blocking:
             self.wait()
 
@@ -104,6 +120,11 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -169,19 +190,27 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Params, verify: bool = True
-                ) -> Params:
+    def restore(self, step: int, like: Params,
+                shardings: Params | None = None,
+                verify: bool = True) -> Params:
         """Checkpoint ``step`` as a tree shaped like ``like``, each leaf
-        on the device of ``like``'s; a leaf whose bytes do not match its
+        on the device of ``like``'s, and distributed by the matching
+        leaf of ``shardings`` when given (every rank reads the files and
+        keeps its own pieces); a leaf whose bytes do not match its
         manifest's crc32 raises ``OSError``."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
+        shard = flatten(shardings) if shardings is not None else {}
         out = {}
         for key, leaf in flatten(like).items():
             meta = manifest["leaves"][key]
             arr = np.load(os.path.join(path, meta["file"]))
             if verify and _crc(arr) != meta["crc32"]:
                 raise OSError(f"checksum mismatch for {key} in {path}")
-            out[key] = from_numpy(arr, meta["dtype"]).to(leaf.device)
+            dev = (leaf.to_local() if is_dtensor(leaf) else leaf).device
+            t = from_numpy(arr, meta["dtype"]).to(dev)
+            if key in shard:
+                t = distribute(t, shard[key], src_data_rank=None)
+            out[key] = t
         return unflatten(out)

@@ -1,8 +1,9 @@
-"""AdamW with a warmup + cosine schedule.
+"""AdamW with a warmup + cosine schedule, and ZeRO-1-style moments.
 
-Counterpart of the reference package's ``train/optimizer.py`` on one
-card (its ``opt_state_specs`` places moments on a mesh and is left
-out).  The arithmetic is the reference's, in its float32 order:
+Counterpart of the reference package's ``train/optimizer.py``.  Moments
+take their parameter's partition spec (:func:`opt_state_specs`), so on
+a mesh the optimizer state is sharded as the parameters are.  The
+arithmetic is the reference's, in its float32 order:
 
   * the schedule, the bias corrections ``c1``/``c2`` and the clip scale
     are float32 scalars, as JAX's weakly typed Python scalars make them;
@@ -15,7 +16,10 @@ writes parameters and moments in place, a leaf at a time and a piece of
 at most :data:`CHUNK` elements along the leading (period) axis at a
 time, so the float32 temporaries stay that size: updated whole, the
 experts' ``w_in`` of granite-moe-3b ([32, 40, 1536, 512] in bf16) would
-take five float32 temporaries of 4 GB each.
+take five float32 temporaries of 4 GB each.  On DTensor leaves the
+update runs on each rank's local pieces (every leaf's moments placed as
+the parameter, each gradient redistributed to it first); only the
+global norm is a collective.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import math
 from typing import Any
 
 import torch
+
+from repro_torch.dist.sharding import P, is_dtensor
 
 from .tree import leaves
 
@@ -76,6 +82,38 @@ def init_opt_state(cfg: OptConfig, params: Params) -> Params:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_state_specs(param_specs: Params) -> Params:
+    """The partition-spec tree of :func:`init_opt_state`'s result: each
+    moment as its parameter, the step count replicated."""
+    return {"mu": param_specs, "nu": param_specs, "count": P()}
+
+
+def _local(t: torch.Tensor, like: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """A DTensor's local piece (a view: writes to it write the DTensor),
+    after redistributing it to ``like``'s placements when given; a plain
+    tensor itself."""
+    if not is_dtensor(t):
+        return t
+    if like is not None and tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
+
+
+def _leaf_sum(t: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """The sum of a leaf over all its elements, given ``local``, the sum
+    over this rank's piece: for a DTensor, the pieces' sums added over
+    the mesh dimensions that shard it (a collective); else ``local``."""
+    if not is_dtensor(t):
+        return local
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    pl = [Partial() if isinstance(q, Shard) else Replicate()
+          for q in t.placements]
+    return DTensor.from_local(local, t.device_mesh, pl,
+                              run_check=False).full_tensor()
+
+
 def chunks(t: torch.Tensor) -> list[slice]:
     """Slices along ``t``'s leading axis of at most :data:`CHUNK`
     elements each (one slice for a 0-d or small tensor)."""
@@ -91,8 +129,9 @@ def global_norm(tree: Params) -> torch.Tensor:
     leaves in the reference's order."""
     total = 0
     for g in leaves(tree):
-        total = total + sum(torch.sum(torch.square(g[s].float()))
-                            for s in chunks(g))
+        gl = _local(g)
+        total = total + _leaf_sum(g, sum(torch.sum(torch.square(
+            gl[s].float())) for s in chunks(gl)))
     return torch.sqrt(total)
 
 
@@ -101,8 +140,8 @@ def apply_updates(cfg: OptConfig, params: Params, grads: Params,
     """One AdamW step with global-norm clipping.  Writes ``params`` and
     the moments of ``state`` in place and returns (params, state,
     {"grad_norm", "lr"}); ``state["count"]`` is replaced by count + 1."""
-    count = int(state["count"])
-    dev = state["count"].device
+    count = int(_local(state["count"]))
+    dev = _local(state["count"]).device
     gnorm = global_norm(grads)
     # a tensor over a tensor: ``float / tensor`` multiplies by a reciprocal
     scale = torch.clamp(_f32(cfg.grad_clip).to(dev) / (gnorm + 1e-9),
@@ -113,8 +152,14 @@ def apply_updates(cfg: OptConfig, params: Params, grads: Params,
     lr_d, c1_d, c2_d = (x.to(dev) for x in (lr, c1, c2))
     dt = getattr(torch, cfg.opt_dtype)
     with torch.no_grad():
-        for p, g, mu, nu in zip(leaves(params), leaves(grads),
-                                leaves(state["mu"]), leaves(state["nu"])):
+        for pd, g, mu, nu in zip(leaves(params), leaves(grads),
+                                 leaves(state["mu"]), leaves(state["nu"])):
+            if is_dtensor(pd) and not (
+                    tuple(mu.placements) == tuple(nu.placements)
+                    == tuple(pd.placements)):
+                raise ValueError("moments are not placed as their "
+                                 "parameter (opt_state_specs)")
+            p, g, mu, nu = _local(pd), _local(g, pd), _local(mu), _local(nu)
             for s in chunks(p):
                 g32 = g[s].float() * scale
                 mu32 = cfg.b1 * mu[s].float() + (1 - cfg.b1) * g32
@@ -126,6 +171,10 @@ def apply_updates(cfg: OptConfig, params: Params, grads: Params,
                 p[s] = new_p.to(p.dtype)
                 mu[s] = mu32.to(dt)
                 nu[s] = nu32.to(dt)
-    state["count"] = torch.full((), count + 1, dtype=torch.int32,
-                                device=dev)
+    new_count = torch.full((), count + 1, dtype=torch.int32, device=dev)
+    if is_dtensor(state["count"]):
+        c = state["count"]
+        new_count = type(c).from_local(new_count, c.device_mesh,
+                                       c.placements, run_check=False)
+    state["count"] = new_count
     return params, state, {"grad_norm": gnorm, "lr": lr}
