@@ -25,7 +25,6 @@ import math
 from dataclasses import dataclass
 
 import numpy as np
-from torch.profiler import record_function
 
 from repro_torch.core.bitserial import BitSerialEngine
 from repro_torch.core.clutch import ClutchEngine
@@ -36,6 +35,7 @@ from repro_torch.core.machine import (
     PuDArch,
     unpack_bits,
 )
+from repro_torch.tracing import span
 
 from .pipeline import HostTimer
 
@@ -159,7 +159,7 @@ class PudQueryEngine:
         self.num_banks = max(1, math.ceil(records / cols_per_bank))
         per_bank = math.ceil(records / self.num_banks)
         n_cols = max(4096, 1 << (per_bank - 1).bit_length())
-        with record_function("PudQueryEngine.shard"):
+        with span("PudQueryEngine.shard"):
             self._shards = [self._shard(f, n_cols) for f in table.features]
 
         def make_sub():

@@ -33,7 +33,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from repro_torch.tracing import span
 
 from .machine import WORD_BITS, BankedSubarray, pack_bits
 
@@ -225,7 +226,7 @@ def load_vector(
     B``, from which Unmodified PuD derives the negated operators."""
     # the profiler's spans split a load: the host's chunk extraction,
     # then the upload, kernel and row writes (the device part async)
-    with record_function("load_vector.extract"):
+    with span("load_vector.extract"):
         values = _conform_values(sub, values)
         if complement:
             values = np.uint64((1 << plan.n_bits) - 1) - values
@@ -236,9 +237,9 @@ def load_vector(
         n_planes = (1 << k) - 1
         start = sub.alloc(n_planes)
         cp.append(start)
-        with record_function("load_vector.extract"):
+        with span("load_vector.extract"):
             chunk_vals = (vals_w >> wdt(shift)) & wdt(n_planes)
-        with record_function("load_vector.encode"):
+        with span("load_vector.encode"):
             sub.host_write_rows(start, _chunk_planes(sub, chunk_vals, k))
     return LutLayout(plan=plan, cp=tuple(cp), complement=complement)
 

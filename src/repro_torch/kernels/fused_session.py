@@ -21,10 +21,13 @@ Bitmaps, counts and leaf addresses are exact integer math on the
 device; the few float aggregates (Q4/Q5 averages, GBDT leaf sums) are
 finished on the host with the reference's NumPy expressions.
 
-Row indices are resolved on the host (memoized per ``(plan, scalar)``)
-and passed as kernel operands, so one kernel serves every (feature,
-scalar) combination; ``launch_counts`` counts launches per query kind
-``(num_ranges, disjunction)`` and per compound shape.
+Row indices are resolved on the host (memoized per ``(plan, scalar)``
+and per range) and passed as kernel operands, so one kernel serves
+every (feature, scalar) combination.  Each step of a job is a
+:mod:`repro_torch.tracing` span (``pud.resolve``, ``pud.launch``,
+``pud.count``, ``pud.bitmap``, ``pud.finish``, ``pud.addrs``,
+``pud.assemble``), and while a profiler records, resolution counts its
+scalar lookups and the runs of Algorithm 1 among them (``resolve.*``).
 
 Over a 1-D mesh (``mesh=``, e.g.
 :func:`repro_torch.dist.sharding.shard_mesh`; every rank of it builds
@@ -47,6 +50,7 @@ import torch
 from repro_torch.apps.gbdt import assemble_leaves
 from repro_torch.convert import words_to_numpy
 from repro_torch.core.encoding import ChunkPlan, ColumnPlan, make_plan
+from repro_torch.tracing import count, recording, span
 
 from .common import SUBLANES, pack_bits, resolve_device, round_up, unpack_bits
 from .fused_query import (
@@ -55,6 +59,7 @@ from .fused_query import (
     gbdt_leafbits_banked,
 )
 from .ops import (
+    _resolve_scalar_cached,
     encode_lut,
     lut_offsets,
     lut_rows,
@@ -173,14 +178,27 @@ class FusedTableExec:
                                 (self._base_c[f], True)):
                     self.lut[s - shard_lo, b:b + heights[f]] = encode_lut(
                         vt, cp, complement=comp)
-        #: kernel launches per query kind / compound shape
-        self.launch_counts: dict[tuple, int] = {}
         self._idx_cache: dict[tuple, np.ndarray] = {}
 
-    def _count(self, key: tuple) -> None:
-        self.launch_counts[key] = self.launch_counts.get(key, 0) + 1
-
     # ---------------------------- index plumbing ----------------------- #
+    def _indices(self, ranges: list[tuple[int, int, int]]) -> np.ndarray:
+        """The ranges' row indices, concatenated, each served by the
+        per-range cache or resolved by :meth:`_range_idx`.  While a
+        profiler records, counts ``resolve.lookups`` (two a range, one
+        where the lt-side saturates past the column max, cached or not)
+        and ``resolve.computed`` (the per-scalar memo's misses)."""
+        with span("pud.resolve"):
+            if not recording():
+                return np.concatenate([self._range_idx(*r) for r in ranges])
+            misses = _resolve_scalar_cached.cache_info().misses
+            idx = np.concatenate([self._range_idx(*r) for r in ranges])
+            count("resolve.lookups", sum(
+                1 if x1 > self.plans[fi].max_value else 2
+                for fi, _, x1 in ranges))
+            count("resolve.computed",
+                  _resolve_scalar_cached.cache_info().misses - misses)
+            return idx
+
     def _range_idx(self, fi: int, x0: int, x1: int) -> np.ndarray:
         """Algorithm 1 row indices for ``x0 < f_fi < x1`` in the stacked
         LUT: gt-side on feature ``fi``'s normal block, lt-side on its
@@ -216,11 +234,16 @@ class FusedTableExec:
 
     def _predicate(self, ranges: list[tuple[int, int, int]],
                    disjunction: bool):
-        idx = np.concatenate([self._range_idx(*r) for r in ranges])
-        bm, cnt = fused_predicate_banked(self.lut, idx, self.num_chunks,
-                                         len(ranges), disjunction)
-        self._count((len(ranges), disjunction))
-        return bm, self._total(cnt)
+        """(packed bitmap, per-shard counts) of one predicate launch."""
+        idx = self._indices(ranges)
+        with span("pud.launch"):
+            return fused_predicate_banked(self.lut, idx, self.num_chunks,
+                                          len(ranges), disjunction)
+
+    def _counted(self, cnt: torch.Tensor) -> int:
+        """The count of the per-shard counts ``cnt``, on the host."""
+        with span("pud.count"):
+            return int(self._total(cnt))
 
     def _total(self, cnt: torch.Tensor) -> torch.Tensor:
         """The shards' counts summed (over the mesh: an all-reduce)."""
@@ -232,10 +255,11 @@ class FusedTableExec:
     def _bitmap(self, bm: torch.Tensor) -> np.ndarray:
         """[S, W] packed words (this rank's block of them on a mesh,
         all-gathered) -> bool [num_records] in table order."""
-        if self.mesh is not None:
-            bm = _all_gather(bm, self.mesh)
-        bits = unpack_bits(words_to_numpy(bm), self.per)      # [S, per]
-        return bits.reshape(-1)[: self.table.num_records].astype(bool)
+        with span("pud.bitmap"):
+            if self.mesh is not None:
+                bm = _all_gather(bm, self.mesh)
+            bits = unpack_bits(words_to_numpy(bm), self.per)  # [S, per]
+            return bits.reshape(-1)[: self.table.num_records].astype(bool)
 
     # ------------------------------- queries --------------------------- #
     def run(self, queries: list[tuple]) -> list:
@@ -254,30 +278,34 @@ class FusedTableExec:
             return self._bitmap(bm)
         if name == "q3":
             fi, x0, x1, fj, y0, y1 = p
-            _, total = self._predicate([(fi, x0, x1), (fj, y0, y1)], True)
-            return int(total)
+            _, cnt = self._predicate([(fi, x0, x1), (fj, y0, y1)], True)
+            return self._counted(cnt)
         if name == "q4":
             fk, fi, x0, x1, fj, y0, y1 = p
             bm, _ = self._predicate([(fi, x0, x1), (fj, y0, y1)], False)
-            # host-side float finish, the reference's expression
-            vals = self.table.features[fk][self._bitmap(bm)]
-            return float(vals.mean()) if vals.size else 0.0
+            mask = self._bitmap(bm)
+            with span("pud.finish"):
+                # host-side float finish, the reference's expression
+                vals = self.table.features[fk][mask]
+                return float(vals.mean()) if vals.size else 0.0
         if name == "q5":
             fl, fk, fi, x0, x1, fj, y0, y1 = p
             bm, _ = self._predicate([(fi, x0, x1), (fj, y0, y1)], True)
-            vals = self.table.features[fk][self._bitmap(bm)]
-            avg = int(vals.mean()) if vals.size else 0
-            hi = min(2 * avg, self.mx)
+            mask = self._bitmap(bm)
+            with span("pud.finish"):
+                vals = self.table.features[fk][mask]
+                avg = int(vals.mean()) if vals.size else 0
+                hi = min(2 * avg, self.mx)
             if avg >= hi:
                 return 0
             # phase 2: the scalars exist only after phase 1's host finish
-            _, total = self._predicate([(fl, avg, hi)], False)
-            return int(total)
+            _, cnt = self._predicate([(fl, avg, hi)], False)
+            return self._counted(cnt)
         if name == "compound":
             # (count, merge, ops, terms); `merge` picks the reference
             # machine's in-DRAM vs host combine -- one launch computes
             # the same result either way, so it is accepted and ignored
-            count, _merge_mode, ops, terms = p
+            counting, _merge_mode, ops, terms = p
             ranges: list[tuple[int, int, int]] = []
             t_nr: list[int] = []
             t_disj: list[bool] = []
@@ -295,12 +323,12 @@ class FusedTableExec:
                 else:
                     raise ValueError(f"unsupported compound term {tk!r}")
             conn = tuple(op == "or" for op in ops)
-            idx = np.concatenate([self._range_idx(*r) for r in ranges])
-            bm, cnt = fused_compound_banked(
-                self.lut, idx, self.num_chunks, tuple(t_nr), tuple(t_disj),
-                conn)
-            self._count(("compound", tuple(t_nr), tuple(t_disj), conn))
-            return int(self._total(cnt)) if count else self._bitmap(bm)
+            idx = self._indices(ranges)
+            with span("pud.launch"):
+                bm, cnt = fused_compound_banked(
+                    self.lut, idx, self.num_chunks, tuple(t_nr),
+                    tuple(t_disj), conn)
+            return self._counted(cnt) if counting else self._bitmap(bm)
         raise ValueError(f"unknown query {name!r}")
 
 
@@ -357,41 +385,44 @@ class FusedGbdtExec:
         nodes = torch.arange(self.n_nodes, device=self.device)
         self._node_word = (nodes // 32).view(forest.num_trees, forest.depth)
         self._node_bit = (nodes % 32).view(forest.num_trees, forest.depth)
-        #: kernel launches, under the single key ``"gbdt"``
-        self.launch_counts: dict[str, int] = {}
 
     def leaf_addrs(self, X: np.ndarray) -> np.ndarray:
         """[B, F] quantized instances -> [B, T] int32 leaf addresses
         (exact; the whole device half of inference)."""
         forest, plan = self.forest, self.plan
-        X = np.asarray(X)
-        if self._clamp:
-            X = np.minimum(X.astype(np.int64), self.mx)
-        b = X.shape[0]
-        if self.mesh is not None:
-            rank, n_ranks, _ = _mesh_group(self.mesh)
-            b_pad = round_up(max(b, 1), n_ranks)
-            if b_pad != b:
-                X = np.concatenate([X, np.repeat(X[:1], b_pad - b, axis=0)])
-            per = b_pad // n_ranks
-            X = X[rank * per:(rank + 1) * per]
-        cols = []
-        for f in range(forest.num_features):
-            lt, le = resolve_indices_banked(plan, X[:, f].astype(np.int64))
-            cols += [lt, le]
-        idx = np.concatenate(cols, axis=1).astype(np.int32)
-        bm = gbdt_leafbits_banked(self.lut, self.masks, idx,
-                                  self.num_chunks, forest.num_features)
-        self.launch_counts["gbdt"] = self.launch_counts.get("gbdt", 0) + 1
-        # addr = sum_d bit(t, d) << (D - 1 - d), one depth level at a time
-        addrs = torch.zeros((X.shape[0], forest.num_trees),
-                            dtype=torch.int32, device=self.device)
-        for d in range(forest.depth):
-            bit = (bm[:, self._node_word[:, d]] >> self._node_bit[:, d]) & 1
-            addrs = (addrs << 1) | bit
-        if self.mesh is not None:
-            addrs = _all_gather(addrs, self.mesh)[:b]
-        return addrs.to(torch.int32).cpu().numpy()
+        with span("pud.resolve"):
+            X = np.asarray(X)
+            if self._clamp:
+                X = np.minimum(X.astype(np.int64), self.mx)
+            b = X.shape[0]
+            if self.mesh is not None:
+                rank, n_ranks, _ = _mesh_group(self.mesh)
+                b_pad = round_up(max(b, 1), n_ranks)
+                if b_pad != b:
+                    X = np.concatenate(
+                        [X, np.repeat(X[:1], b_pad - b, axis=0)])
+                per = b_pad // n_ranks
+                X = X[rank * per:(rank + 1) * per]
+            cols = []
+            for f in range(forest.num_features):
+                lt, le = resolve_indices_banked(plan,
+                                                X[:, f].astype(np.int64))
+                cols += [lt, le]
+            idx = np.concatenate(cols, axis=1).astype(np.int32)
+        with span("pud.launch"):
+            bm = gbdt_leafbits_banked(self.lut, self.masks, idx,
+                                      self.num_chunks, forest.num_features)
+        with span("pud.addrs"):
+            # addr = sum_d bit(t, d) << (D - 1 - d), a depth level at a time
+            addrs = torch.zeros((X.shape[0], forest.num_trees),
+                                dtype=torch.int32, device=self.device)
+            for d in range(forest.depth):
+                bit = (bm[:, self._node_word[:, d]]
+                       >> self._node_bit[:, d]) & 1
+                addrs = (addrs << 1) | bit
+            if self.mesh is not None:
+                addrs = _all_gather(addrs, self.mesh)[:b]
+            return addrs.to(torch.int32).cpu().numpy()
 
     def infer(self, X: np.ndarray) -> np.ndarray:
         """[B, F] -> [B] float32 predictions, bit-exact with the
@@ -399,4 +430,6 @@ class FusedGbdtExec:
         X = np.asarray(X)
         if X.shape[0] == 0:
             return np.empty((0,), np.float32)
-        return assemble_leaves(self.forest.leaves, self.leaf_addrs(X))
+        addrs = self.leaf_addrs(X)
+        with span("pud.assemble"):
+            return assemble_leaves(self.forest.leaves, addrs)

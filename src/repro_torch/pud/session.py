@@ -81,6 +81,7 @@ from repro_torch.core.scheduler import (
 )
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fused_session import FusedGbdtExec, FusedTableExec
+from repro_torch.tracing import span
 
 from .executors import GbdtBatchExecutor, QueryBatchExecutor
 from .planner import (
@@ -587,7 +588,7 @@ class PudSession:
         """The resource's executor for the session's backend (rebuilt
         if evicted): the machine executor (engines, ``wave_width``,
         ``placements``, ``fused_config()``) or the fused one (LUT
-        tensors, ``launch_counts`` and, for forests, ``leaf_addrs``)."""
+        tensors, layout and, for forests, ``leaf_addrs``)."""
         if self.backend == "machine":
             return self._machine_exec(handle.name)
         return self._fused_exec(handle.name)
@@ -648,44 +649,46 @@ class PudSession:
         single query ``result`` is its value, for a batch the list of
         values; each equals the query's NumPy ``reference`` on either
         backend."""
-        single = isinstance(queries, (Q1, Q2, Q3, Q4, Q5, Compound))
-        batch = [q.to_tuple() for q in ([queries] if single
-                                        else list(queries))]
-        if self._backend(backend) == "fused":
-            fx = self._job_fused_exec(table.name, "table")
-            t0 = time.perf_counter()
-            results = fx.run(batch)
-            self._sync()
-            wall = (time.perf_counter() - t0) * 1e9
+        with span("pud.query"):
+            single = isinstance(queries, (Q1, Q2, Q3, Q4, Q5, Compound))
+            batch = [q.to_tuple() for q in ([queries] if single
+                                            else list(queries))]
+            if self._backend(backend) == "fused":
+                fx = self._job_fused_exec(table.name, "table")
+                t0 = time.perf_counter()
+                results = fx.run(batch)
+                self._sync()
+                wall = (time.perf_counter() - t0) * 1e9
+                return JobResult(result=results[0] if single else results,
+                                 wallclock_ns=wall, backend="fused")
+            ex = self._machine_exec(table.name, "table")
+            results = ex.run(batch)
+            timeline = ex.schedule(self.sys_cfg)
+            self._lint_job(ex, timeline)
+            stats = ex.last_stats(self.sys_cfg, timeline=timeline)
             return JobResult(result=results[0] if single else results,
-                             wallclock_ns=wall, backend="fused")
-        ex = self._machine_exec(table.name, "table")
-        results = ex.run(batch)
-        timeline = ex.schedule(self.sys_cfg)
-        self._lint_job(ex, timeline)
-        stats = ex.last_stats(self.sys_cfg, timeline=timeline)
-        return JobResult(result=results[0] if single else results,
-                         stats=stats, timeline=timeline)
+                             stats=stats, timeline=timeline)
 
     def predict(self, forest: ForestHandle, X: np.ndarray,
                 backend: str | None = None) -> JobResult:
         """Batched GBDT inference; ``result`` is the [B] float32
         predictions in input order (one kernel launch for the batch on
         the fused backend)."""
-        if self._backend(backend) == "fused":
-            fx = self._job_fused_exec(forest.name, "forest")
-            t0 = time.perf_counter()
-            preds = fx.infer(np.asarray(X))
-            self._sync()
-            wall = (time.perf_counter() - t0) * 1e9
-            return JobResult(result=preds, wallclock_ns=wall,
-                             backend="fused")
-        ex = self._machine_exec(forest.name, "forest")
-        preds = ex.infer(np.asarray(X))
-        timeline = ex.schedule(self.sys_cfg)
-        self._lint_job(ex, timeline)
-        stats = ex.last_stats(self.sys_cfg, timeline=timeline)
-        return JobResult(result=preds, stats=stats, timeline=timeline)
+        with span("pud.predict"):
+            if self._backend(backend) == "fused":
+                fx = self._job_fused_exec(forest.name, "forest")
+                t0 = time.perf_counter()
+                preds = fx.infer(np.asarray(X))
+                self._sync()
+                wall = (time.perf_counter() - t0) * 1e9
+                return JobResult(result=preds, wallclock_ns=wall,
+                                 backend="fused")
+            ex = self._machine_exec(forest.name, "forest")
+            preds = ex.infer(np.asarray(X))
+            timeline = ex.schedule(self.sys_cfg)
+            self._lint_job(ex, timeline)
+            stats = ex.last_stats(self.sys_cfg, timeline=timeline)
+            return JobResult(result=preds, stats=stats, timeline=timeline)
 
     # ------------------------------------------------------------------ #
     # Introspection (the machine model)
