@@ -33,7 +33,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
    repeated rows and steps with lt == le, 70,000 banks of a narrow LUT,
    compounds of 40 terms, of more than 12,288 row indices (once the
    limit of the card) and of 1,000 terms (the term program in device
-   memory);
+   memory); ``gbdt_leafbits_sum`` bit for bit against its plain version
+   and ``assemble_leaves`` at B 1, 31, 256, 2^16 + 5 by T 1, 129, 1000,
+   1001 by depth 1, 6, 7, 8 (L 128 and 256 through L1), with L 65 and
+   an unaligned view of the leaves bit-equal to the staged route;
    and the comparison front-ends against NumPy.
 3. Table path at full width: ``Table.generate(2**25, 32, num_features=8)``
    (33.5M records, 2 shards, 8 chunks of 4 bits: an 8.6 GB LUT) through
@@ -41,7 +44,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
    to its NumPy reference (Q4 within 1e-9, as ``check`` holds it).
 4. GBDT path: ``ObliviousForest.random(1000, 6, 28, n_bits=8)`` through
    ``PudSession.predict`` on 2^16 instances; leaf addresses exact,
-   predictions bit-equal to ``assemble_leaves`` over the reference
+   predictions (summed on the card by ``gbdt_leafbits_sum``, which must
+   have launched) bit-equal to ``assemble_leaves`` over the reference
    addresses.
 5. Kernel front-ends at full width, on phase 3's column 0 and phase 4's
    forest: ``clutch_compare`` and ``bitserial_compare`` at 8/16/32 bits
@@ -87,7 +91,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
    merges and predicates the floor of one pass over the rows they read
    (``x.amax(dim=0)`` over a contiguous ``[rows, words]`` tensor, cold),
    and the predicate and compound timed again on the LUT and on a fresh
-   copy of it (``cold_ms_again``, ``cold_ms_fresh_lut``);
+   copy of it (``cold_ms_again``, ``cold_ms_fresh_lut``), and
+   ``gbdt_leafbits_sum`` at both predict cells' batches (2^16 and 256
+   instances) beside the host's ``assemble_leaves``;
    the ``kernels`` JSON line and the ok line are printed after phase 13.
 9. Training, on a clean card (the LUT, forest and models of
    phases 3-7 dropped): reduced ``granite-moe-3b-a800m`` in float32,
@@ -276,6 +282,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import timeit
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -318,6 +325,10 @@ KERNEL_META = {
     "leaf_gather": (
         "src/repro_torch/kernels/csrc/leaf_gather.cu",
         "src/repro/kernels/leaf_gather.py:41"),
+    "gbdt_leafbits_sum": (
+        "src/repro_torch/kernels/csrc/fused_query.cu",
+        "none: the reference sums on the host (apps/gbdt.py "
+        "assemble_leaves)"),
     "minp_mask": (
         "src/repro_torch/kernels/csrc/minp_mask.cu",
         "src/repro/kernels/minp_mask.py:47"),
@@ -524,6 +535,27 @@ def lineitem_columns(n: int, seed: int) -> list:
         c[7] = hi
         cols.append(c)
     return cols
+
+
+def leafsum_case(torch, g, b: int, t: int, d: int):
+    """Random [b, t] leaf addresses of depth ``d`` (int32), [t, 2^d]
+    float32 leaves over six decades, and the addresses' leaf bits
+    [b, ceil(t * d / 32) + 1] as ``gbdt_leafbits_banked`` lays them out
+    (node ``t * d + k`` at word / bit ``(t * d + k) // 32``, ``% 32``),
+    on the generator's device."""
+    from repro_torch.kernels.common import to_int32_bits
+
+    dev = g.device
+    at = torch.randint(0, 1 << d, (b, t), generator=g, device=dev,
+                       dtype=torch.int32)
+    lv = torch.randn((t, 1 << d), generator=g, device=dev) * 10.0 ** (
+        6 * torch.rand((t, 1 << d), generator=g, device=dev) - 3)
+    w = -(-t * d // 32) + 1
+    shifts = torch.arange(d - 1, -1, -1, device=dev)
+    bits = ((at.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(b, -1)
+    bits = torch.nn.functional.pad(bits, (0, w * 32 - t * d))
+    words = (bits.view(b, w, 32) << torch.arange(32, device=dev)).sum(-1)
+    return at, lv, to_int32_bits(words)
 
 
 def card_line() -> str:
@@ -894,6 +926,38 @@ def check_kernels(torch) -> int:
               f"leaf_gather B={b} T={t}: leaves through L1 vs staged")
         del at, flat, view
 
+    # gbdt_leafbits_sum: predictions from random leaf bits, bit for bit
+    # against its plain version on the card and assemble_leaves over the
+    # same addresses on the host; B within, at and past a 32-instance
+    # round and a block's most instances (256), T below 8, past one
+    # 128-tree block and the cells' 1000 (1001: a tail of 1), depth 1 and
+    # 6-8 (L 128 and 256: leaves through L1); then a table one leaf
+    # wider (65 a tree: through L1) and an unaligned view of the leaves
+    # (4-byte staging) against the staged 16-byte route; and 20,000
+    # trees, past NumPy's 8,192-value buffer, where NumPy versions sum in
+    # two orders (ref.numpy_row_run)
+    cases = [(b, t, d) for b in (1, 31, 256, big)
+             for t in (1, 129, 1000, 1001) for d in (1, 6, 7, 8)]
+    for b, t, d in cases + [(31, 20_000, 6)]:
+        at, lv, bm = leafsum_case(torch, g, b, t, d)
+        got = K.gbdt_leafbits_sum(bm, lv, t, d)
+        what = f"gbdt_leafbits_sum B={b} T={t} D={d}"
+        agree(same_bits(torch, got, ref.gbdt_leafbits_sum_ref(
+            bm, lv, t, d)), f"{what} vs its plain version")
+        agree(got.cpu().numpy().tobytes() == G.assemble_leaves(
+            lv.cpu().numpy(), at.cpu().numpy()).tobytes(),
+            f"{what} vs assemble_leaves")
+        if d == 6 and t == 1000 and b in (31, big):
+            lv65 = torch.nn.functional.pad(lv, (0, 1))
+            agree(same_bits(torch, K.gbdt_leafbits_sum(
+                bm, lv65, t, d), got), f"{what}: L = 65 vs staged")
+            flat = torch.empty(t * 64 + 1, device=cuda)
+            flat[1:] = lv.reshape(-1)
+            agree(same_bits(torch, K.gbdt_leafbits_sum(
+                bm, flat[1:].view(t, 64), t, d), got),
+                f"{what}: unaligned leaves vs aligned")
+        del at, lv, bm, got
+
     # minp_mask: +-0, +-NaN, +-inf, denormals, tau equal to a logit; V not
     # a multiple of 4 (rows off the 16-byte grid), an unaligned view, and
     # every chunking the kernel takes; compared as bit patterns (NaN)
@@ -986,6 +1050,7 @@ def run_table_path(torch, report):
 
 def run_gbdt_path(torch, report):
     import repro_torch.kernels as K
+    from repro_torch import tracing
     from repro_torch.apps import gbdt as G
     from repro_torch.pud import PudSession
 
@@ -1000,6 +1065,9 @@ def run_gbdt_path(torch, report):
     counts = K.launch_counts()
     for k in ("temporal_encode", "gbdt_leafbits_banked"):
         expect(counts[k] > 0, f"{k} not launched on the GBDT path")
+    # the predictions are summed on the card, one launch a predict call
+    expect(tracing.counters()["launch.gbdt_leafbits_sum"] > 0,
+           "gbdt_leafbits_sum not launched on the GBDT path")
     ex = session.executor(handle)
     # reference_leaf_addrs returns a Fortran-ordered array, and NumPy's
     # float32 sum in assemble_leaves rounds differently along a strided
@@ -3798,6 +3866,7 @@ def merge_rows(lt, le) -> int:
 def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
             report):
     import repro_torch.kernels as K
+    from repro_torch.apps import gbdt as G
     from repro_torch.core.encoding import make_plan
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.common import quad_rows
@@ -3953,6 +4022,35 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
     g1 = gidx[:, :2 * gc].contiguous()
     report["bounds"]["gbdt_leafbits_banked"]["one_feature_cold_ms"] = cold_ms(
         torch, lambda: K.gbdt_leafbits_banked(glut, masks, g1, gc, 1), flush)
+
+    # gbdt_leafbits_sum: that batch's leaf bits summed to predictions
+    # (bulk-65536's shape), and its first 256 rows (online-256's); beside
+    # them the host's assemble_leaves over the same addresses, which the
+    # kernel replaces on the predict path
+    lv, t, d = gbdt_ex.leaves, gbdt_ex.forest.num_trees, gbdt_ex.forest.depth
+    nw = -(-t * d // 32)
+    sums = {}
+    for nb in (b, 256):
+        bm = got[:nb]
+        cold[f"gbdt_leafbits_sum {nb}"] = cold_ms(
+            torch, lambda: K.gbdt_leafbits_sum(bm, lv, t, d), flush)
+        sums[nb] = {
+            "ms": median_ms(torch, lambda: K.gbdt_leafbits_sum(bm, lv, t, d),
+                            batch=10),
+            "cold_ms": cold[f"gbdt_leafbits_sum {nb}"],
+            "plain_ms": median_ms(torch, lambda: ref.gbdt_leafbits_sum_ref(
+                bm, lv, t, d), reps=5),
+            "bound_ms": bound((nb * nw + t * lv.shape[1] + nb) * 4, nb * t)[0],
+            "host_assemble_ms": 1e3 * min(timeit.repeat(
+                lambda: G.assemble_leaves(gbdt_ex.forest.leaves,
+                                          addrs[:nb]), number=1, repeat=3))}
+    entry("gbdt_leafbits_sum", [K.gbdt_leafbits_sum(got, lv, t, d)],
+          [ref.gbdt_leafbits_sum_ref(got, lv, t, d)], sums[b]["ms"],
+          sums[b]["plain_ms"], (b * nw + t * lv.shape[1] + b) * 4, b * t,
+          {"bitmap_shape": list(got.shape), "leaves_shape": list(lv.shape),
+           "bitmap_bytes_read": b * nw * 4, "online_256": sums[256],
+           "bulk_host_assemble_ms": sums[b]["host_assemble_ms"]},
+          cold_key=f"gbdt_leafbits_sum {b}")
 
     # The front-end path's kernels, at its shapes: CUDA events around
     # batches of 10 launches, since several bounds are a few microseconds.

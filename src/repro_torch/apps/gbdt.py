@@ -6,7 +6,8 @@ the per-node comparison bits are the leaf address bits (depth 0 = MSB).
 Per feature f with instance value v: ``cmp = Clutch(v < thresholds)``,
 ``acc |= cmp & mask_f``, all in-DRAM; one row readout gives every tree's
 leaf address and the host sums the leaf values (:func:`assemble_leaves`,
-the exact float32 expression both backends share).
+the exact float32 expression the backends share; the card's fused path
+sums them with ``gbdt_leafbits_sum`` in the same float32 order).
 
 :class:`GbdtPudEngine` maps one instance per bank (a forest wider than a
 bank spans ``col_shards`` banks an instance), so a wave of
@@ -103,10 +104,14 @@ def fit_oblivious_forest(X: np.ndarray, y: np.ndarray, num_trees: int,
 
 
 def assemble_leaves(leaves: np.ndarray, addrs: np.ndarray) -> np.ndarray:
-    """``leaves`` [T, L] float32, ``addrs`` [B, T] -> [B] float32 sums.
-    The reference's machine and fused backends use this exact
-    expression: float32 summation order is part of the bit-exact
-    contract, so the port keeps it unchanged."""
+    """``leaves`` [T, L] float32, ``addrs`` [B, T] -> [B] float32 sums,
+    on the host.  The reference's machine and fused backends use this
+    exact expression: float32 summation order is part of the bit-exact
+    contract, so the port keeps it unchanged.  Over C-ordered ``addrs``
+    NumPy sums each row pairwise (blocks of at most 128 trees, eight
+    accumulators each); the port's fused executor sums on the card
+    instead (``kernels.fused_query.gbdt_leafbits_sum``), with the same
+    additions in the same tree, so its predictions are these bits."""
     t = leaves.shape[0]
     return leaves[np.arange(t)[None], addrs].sum(-1).astype(np.float32)
 

@@ -15,6 +15,7 @@ from .fused_query import (
     fused_predicate_banked,
     fused_range_count,
     gbdt_leafbits_banked,
+    gbdt_leafbits_sum,
 )
 from .leaf_gather import leaf_gather
 from .minp_mask import minp_mask
@@ -26,6 +27,7 @@ KERNELS = {
     "fused_predicate_banked": fused_predicate_banked,
     "fused_compound_banked": fused_compound_banked,
     "gbdt_leafbits_banked": gbdt_leafbits_banked,
+    "gbdt_leafbits_sum": gbdt_leafbits_sum,
     "clutch_merge": clutch_merge,
     "clutch_merge_banked": clutch_merge_banked,
     "fused_range_count": fused_range_count,

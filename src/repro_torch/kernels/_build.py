@@ -42,6 +42,7 @@ SIGNATURES = {
                             _P, _P, _P],
         "range_count_launch": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
         "leafbits_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "leafsum_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "clutch_merge": {
         "merge_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],

@@ -73,6 +73,40 @@
 // Indices are clamped into [0, R) while staged or read, so no index can
 // read outside the LUT; the Python wrappers reject out-of-range host indices
 // before launch.
+//
+// leafsum_kernel (gbdt_leafbits_sum) replaces no TPU kernel: the reference
+// sums an instance's leaves on the host (apps/gbdt.py :: assemble_leaves,
+// NumPy's float32 .sum(-1)), and so did the port until the host's gather-sum
+// and the copy of every leaf address held 72-88 % of a bulk predict call
+// (PERF.md).  From leafbits_kernel's bitmap [B, W] it decodes tree t's
+// address, sum_d bit(t * D + d) << (D - 1 - d), gathers leaves[t, addr] and
+// sums the T values with NumPy's pairwise float32 sum, the same additions in
+// the same tree, so the result is assemble_leaves' to the bit: the trees
+// split at n / 2 rounded down to a multiple of 8 until a block holds at
+// most 128; a block of 8 or more starts eight accumulators at its first
+// eight values, adds every eighth value into each in order, combines them
+// ((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7)) and adds its tail of
+// n % 8 in order; a block below 8 (T < 8 only) adds left to right from 0.
+// NumPy takes a row longer than its buffer (8,192 values by default) a
+// buffer at a time, adding each buffer's pairwise sum to the total from 0;
+// here the buffers' sums are added left to right and the total to 0 at
+// the end, which differs from that only in the sign of an intermediate
+// zero, which the final 0 + erases.  No multiply is involved, so nothing
+// can fuse.  The host turns T and the buffer into the program of blocks
+// (each block's length and the joins after it, fused_query.py ::
+// sum_program) and the launch carries it in its parameters.
+// Bound: the bitmap read once (B * ceil(T * D / 32) * 4 bytes: 49 MB at
+// 65,536 instances of 1000 trees of depth 6, 15 us) plus B floats written;
+// the table (256 KB there) is read from L2.  A block owns up to
+// SUM_MAX_PER instances and walks the program's leaf blocks once, staging
+// each block's rows of the table in shared memory (128 trees of 64 leaves:
+// 32 KB) so the table crosses L2 once a block; a group of eight lanes
+// takes an instance, lane j its accumulator r_j, and the combine runs
+// through __shfl_xor_sync in that order (float addition commutes, so every
+// lane holds the same bits); the tail and the joins are the same on all
+// eight lanes, and lane 0 keeps the instance's stack of pending block sums
+// in shared memory.  Tables of more than 64 leaves a tree are read through
+// L1 instead of staged (as leaf_gather's route does).
 
 #include <algorithm>
 
@@ -416,6 +450,137 @@ int leafbits_run(const void* lut, const void* masks, const void* idx, int c,
   return (int)cudaGetLastError();
 }
 
+constexpr int SUM_THREADS = 256;                 // 32 groups of 8 lanes
+constexpr int SUM_GROUPS = SUM_THREADS / 8;
+constexpr int SUM_BLOCK = 128;                   // NumPy's PW_BLOCKSIZE
+constexpr int SUM_STAGED_L = 64;                 // most leaves staged a tree
+constexpr int SUM_MAX_PER = 256;                 // most instances a block
+constexpr int SUM_PROG = 1024;                   // leaf blocks a program
+constexpr int SUM_STACK = 16;                    // pending block sums
+
+// The order of the sum, in evaluation order: per leaf block its length |
+// the joins that follow it << 8 (each join adds the top two sums of the
+// stack, the deeper one first).
+struct SumProgram {
+  int n_blocks, stack, max_len;
+  int16_t code[SUM_PROG];
+};
+
+template <bool STAGED>
+__global__ void __launch_bounds__(SUM_THREADS)
+leafsum_kernel(const uint32_t* __restrict__ bm,
+               const float* __restrict__ leaves, int B, int W, int D, int L,
+               int per, const __grid_constant__ SumProgram prog,
+               float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  float* stk = sm + (STAGED ? prog.max_len * L : 0);   // [stack][per]
+  const int j = threadIdx.x & 7, g = threadIdx.x >> 3;
+  const int b_first = blockIdx.x * per;
+  const int n_here = min(per, B - b_first);
+  const int rounds = (n_here + SUM_GROUPS - 1) / SUM_GROUPS;
+  const uint32_t dmask = (1u << D) - 1;
+  const bool vec = (L & 3) == 0 && ((uintptr_t)leaves & 15) == 0;
+  int t0 = 0, sp = 0;
+  for (int k = 0; k < prog.n_blocks; ++k) {
+    const int n = prog.code[k] & 0xff, joins = prog.code[k] >> 8;
+    const float* lv = leaves + (long long)t0 * L;
+    if constexpr (STAGED) {
+      __syncthreads();   // the previous leaf block has been read
+      if (vec) {
+        for (int e = threadIdx.x; e < n * L / 4; e += SUM_THREADS)
+          reinterpret_cast<float4*>(sm)[e] =
+              __ldg(reinterpret_cast<const float4*>(lv) + e);
+      } else {
+        for (int e = threadIdx.x; e < n * L; e += SUM_THREADS)
+          sm[e] = __ldg(lv + e);
+      }
+      __syncthreads();
+      lv = sm;
+    }
+    for (int r = 0; r < rounds; ++r) {
+      const int i_loc = r * SUM_GROUPS + g;   // < per: per % 32 == 0
+      const uint32_t* row =
+          bm + (long long)(b_first + min(i_loc, n_here - 1)) * W;
+      auto leaf = [&](int i) -> float {       // tree t0 + i
+        const long long bit = (long long)(t0 + i) * D;
+        const int w = (int)(bit >> 5), sh = (int)(bit & 31);
+        const uint32_t lo = __ldg(row + w);
+        const uint32_t hi = sh + D > 32 ? __ldg(row + w + 1) : 0u;
+        const int a = (int)(__brev(__funnelshift_r(lo, hi, sh) & dmask) >>
+                            (32 - D));
+        return STAGED ? lv[i * L + a] : __ldg(lv + (long long)i * L + a);
+      };
+      float s;
+      if (n < 8) {
+        s = 0.0f;
+        for (int i = 0; i < n; ++i) s += leaf(i);
+      } else {
+        const int m = n - n % 8;
+        s = leaf(j);
+        for (int i = 8; i < m; i += 8) s += leaf(i + j);
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        for (int i = m; i < n; ++i) s += leaf(i);
+      }
+      if (j == 0) {
+        float* st = stk + i_loc;
+        for (int q = 1; q <= joins; ++q) s = st[(sp - q) * per] + s;
+        st[(sp - joins) * per] = s;
+      }
+    }
+    sp += 1 - joins;
+    t0 += n;
+  }
+  for (int r = 0; r < rounds; ++r) {
+    const int i_loc = r * SUM_GROUPS + g;
+    if (j == 0 && i_loc < n_here) out[b_first + i_loc] = 0.0f + stk[i_loc];
+  }
+}
+
+template <bool STAGED>
+int leafsum_run(const void* bm, const void* leaves, int B, int W, int D,
+                int L, const SumProgram& prog, void* out,
+                cudaStream_t stream) {
+  auto kernel = leafsum_kernel<STAGED>;
+  auto smem_of = [&](int per) {
+    return (STAGED ? prog.max_len * L : 0) * 4 + prog.stack * per * 4;
+  };
+  static int opted_in = 48 << 10, occ_smem = -1, occ = 0, sms = 0;
+  const int smem_max = smem_of(SUM_MAX_PER);
+  cudaError_t e = cudaSuccess;
+  if (smem_max > opted_in) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = smem_max;
+  }
+  if (smem_max != occ_smem) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel,
+                                                      SUM_THREADS, smem_max);
+    if (e != cudaSuccess) return (int)e;
+    if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+    occ_smem = smem_max;
+  }
+  if (sms == 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // one wave of blocks, each staging the table once: the instances are
+  // spread over every block slot, 32 at a time
+  const long long slots = (long long)sms * occ;
+  long long per = (B + slots - 1) / slots;
+  per = std::min<long long>(SUM_MAX_PER, (per + SUM_GROUPS - 1) /
+                                             SUM_GROUPS * SUM_GROUPS);
+  kernel<<<(unsigned)((B + per - 1) / per), SUM_THREADS, smem_of((int)per),
+           stream>>>((const uint32_t*)bm, (const float*)leaves, B, W, D, L,
+                     (int)per, prog, (float*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -486,6 +651,41 @@ int leafbits_launch(const void* lut, const void* masks, const void* idx,
   return smem_rows
              ? leafbits_run<true>(lut, masks, idx, c, F, B, R, W, out, s)
              : leafbits_run<false>(lut, masks, idx, c, F, B, R, W, out, s);
+}
+
+// bm [B, W] words (node t * D + d at word / bit (t * D + d) / 32, % 32),
+// leaves [T, L] float32; codes [n_blocks] int16 on the host, the program
+// (fused_query.py :: sum_program): per leaf block its length | the joins
+// after it << 8; out [B] float32.
+int leafsum_launch(const void* bm, const void* leaves, int B, int W, int T,
+                   int D, int L, int n_blocks, const void* codes, void* out,
+                   void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  if (T < 0 || D < 1 || D > 30 || L < (1 << D) ||
+      (long long)T * D > 32LL * W || n_blocks < 1 || n_blocks > SUM_PROG)
+    return (int)cudaErrorInvalidValue;
+  SumProgram prog;
+  prog.n_blocks = n_blocks;
+  prog.stack = prog.max_len = 0;
+  long long trees = 0;
+  int sp = 0;
+  for (int k = 0; k < n_blocks; ++k) {   // a program the kernel can run
+    const int code = ((const int16_t*)codes)[k];
+    const int n = code & 0xff, joins = code >> 8;
+    if (code < 0 || n > SUM_BLOCK || joins > sp)
+      return (int)cudaErrorInvalidValue;
+    prog.code[k] = (int16_t)code;
+    prog.max_len = std::max(prog.max_len, n);
+    prog.stack = std::max(prog.stack, ++sp);
+    sp -= joins;
+    trees += n;
+  }
+  if (sp != 1 || trees != T || prog.stack > SUM_STACK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return L <= SUM_STAGED_L
+             ? leafsum_run<true>(bm, leaves, B, W, D, L, prog, out, s)
+             : leafsum_run<false>(bm, leaves, B, W, D, L, prog, out, s);
 }
 
 const char* cuda_error_string(int err) {

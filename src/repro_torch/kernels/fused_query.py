@@ -14,12 +14,16 @@ Replaces four TPU kernels of ``src/repro/kernels/fused_query.py``:
   merge on the shared threshold LUT OR-ed into the leaf-address bitmap
   through the feature's one-hot mask.
 
+and adds one that replaces none, ``gbdt_leafbits_sum``: the predictions
+from that bitmap, summed on the card in the float32 order of the host's
+``apps.gbdt.assemble_leaves`` (see the note in the CUDA source).
+
 The first two share one CUDA function (``csrc/fused_query.cu ::
 compound_kernel``), the predicate being the one-term compound; each
 wrapper keeps its own launch count.  A compound takes any number of
 terms and ranges: the wrapper hands the kernel a term program
 (:func:`compound_program`, one int32 code per term), and the kernel
-reads any number of row indices.  All four are bound by memory traffic (see the notes in the CUDA
+reads any number of row indices.  All five are bound by memory traffic (see the notes in the CUDA
 source).  A CPU tensor takes the
 plain version from :mod:`repro_torch.kernels.ref`.
 
@@ -30,6 +34,8 @@ already on the card are clamped into range by the kernel.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -39,6 +45,8 @@ from .ref import (
     fused_compound_banked_ref,
     fused_range_count_ref,
     gbdt_leafbits_banked_ref,
+    gbdt_leafbits_sum_ref,
+    numpy_row_run,
 )
 
 # csrc/fused_query.cu :: compound_kernel's term program: the flags of a
@@ -50,6 +58,10 @@ PROG_PARAM = 768
 # live-feature bits, words of a block's slice
 LEAF_WARPS, LEAF_GROUP, LEAF_SLOTS, LEAF_LIVE, LEAF_SLICE = 8, 16, 64, 192, 64
 SMEM_PER_BLOCK = 232448     # shared memory one block may have on Hopper
+# csrc/fused_query.cu :: leafsum_kernel: the most leaf blocks and pending
+# sums of its program, the largest block (NumPy's PW_BLOCKSIZE), the
+# deepest tree it decodes
+SUM_PROG, SUM_STACK, SUM_BLOCK, SUM_MAX_DEPTH = 1024, 16, 128, 30
 
 
 def leafbits_layout(rows: int) -> tuple[bool, int]:
@@ -62,6 +74,40 @@ def leafbits_layout(rows: int) -> tuple[bool, int]:
     if staged <= SMEM_PER_BLOCK:
         return True, staged
     return False, fixed
+
+
+@functools.lru_cache(maxsize=64)
+def sum_program(trees: int, run: int) -> tuple[tuple[int, ...], int]:
+    """The order in which ``leafsum_kernel`` sums ``trees`` values, and
+    the stack it needs: NumPy's ``.sum(-1)`` of a C-ordered float32 row
+    taken ``run`` values at a time (``ref.numpy_row_run``).
+
+    One code per leaf block, in evaluation order: ``length | joins <<
+    8``.  The block's sum is pushed, then each join adds the top two
+    sums, the deeper one first.  A run's pairwise tree splits ``n >
+    SUM_BLOCK`` values at ``n // 2`` rounded down to a multiple of 8;
+    each run after the first joins the running total."""
+    codes: list[int] = []
+
+    def plan(n: int) -> None:
+        if n <= SUM_BLOCK:
+            codes.append(n)
+            return
+        n2 = n // 2 - n // 2 % 8
+        plan(n2)
+        plan(n - n2)
+        codes[-1] += 1 << 8
+
+    for t0 in range(0, max(trees, 1), run):
+        plan(min(run, trees - t0))
+        if t0:
+            codes[-1] += 1 << 8
+    sp = stack = 0
+    for c in codes:
+        sp += 1
+        stack = max(stack, sp)
+        sp -= c >> 8
+    return tuple(codes), stack
 
 
 def compound_program(term_ranges, term_disj, conn_disj) -> np.ndarray:
@@ -228,7 +274,56 @@ def gbdt_leafbits_banked(lut: torch.Tensor, masks: torch.Tensor, idx,
     return out
 
 
+def gbdt_leafbits_sum(bm: torch.Tensor, leaves: torch.Tensor, trees: int,
+                      depth: int) -> torch.Tensor:
+    """GBDT predictions from the leaf-address bitmap, in one launch.
+
+    bm: [B, W] int32 from :func:`gbdt_leafbits_banked`, node ``n = t *
+    depth + d`` at word ``n // 32``, bit ``n % 32``; leaves: [trees, L]
+    float32, ``L >= 2 ** depth``.  Tree ``t``'s address is ``sum_d
+    bit(t, d) << (depth - 1 - d)``.  Returns [B] float32: per instance
+    the sum of ``leaves[t, addr_t]`` over the trees in the order of
+    NumPy's ``.sum(-1)`` (:func:`sum_program` over
+    ``ref.numpy_row_run``), the bits of ``apps.gbdt.assemble_leaves``
+    over the same addresses (C-ordered)."""
+    check_words(bm, 2, "bitmap")
+    if leaves.dim() != 2 or leaves.dtype != torch.float32:
+        raise ValueError(f"leaves must be a 2-D float32 tensor, got "
+                         f"{leaves.dim()}-D {leaves.dtype}")
+    trees, depth = int(trees), int(depth)
+    b, w = bm.shape
+    if leaves.shape[0] != trees:
+        raise ValueError(f"{trees} trees but {leaves.shape[0]} rows of "
+                         "leaves")
+    if not 1 <= depth <= SUM_MAX_DEPTH or leaves.shape[1] < 1 << depth:
+        raise ValueError(f"depth {depth} needs 1 <= depth <= "
+                         f"{SUM_MAX_DEPTH} and 2 ** depth leaves a tree, "
+                         f"got {leaves.shape[1]}")
+    if trees * depth > 32 * w:
+        raise ValueError(f"{trees} trees of depth {depth} need "
+                         f"{trees * depth} bits, the bitmap holds {32 * w}")
+    if not on_card(bm, leaves):
+        return gbdt_leafbits_sum_ref(bm, leaves, trees, depth)
+    codes, stack = sum_program(trees, numpy_row_run(trees))
+    if len(codes) > SUM_PROG or stack > SUM_STACK:
+        raise ValueError(f"{trees} trees sum in {len(codes)} blocks with "
+                         f"{stack} pending; leafsum_kernel takes "
+                         f"{SUM_PROG} and {SUM_STACK}")
+    bm, leaves = bm.contiguous(), leaves.contiguous()
+    out = torch.empty((b,), dtype=torch.float32, device=bm.device)
+    prog = np.asarray(codes, np.int16)
+    lib = _build.load("fused_query")
+    stream = torch.cuda.current_stream(bm.device).cuda_stream
+    err = lib.leafsum_launch(bm.data_ptr(), leaves.data_ptr(), b, w, trees,
+                             depth, leaves.shape[1], prog.size,
+                             prog.ctypes.data, out.data_ptr(), stream)
+    _build.check(lib, err, "fused_query.leafsum_kernel")
+    gbdt_leafbits_sum.launches += 1
+    return out
+
+
 fused_predicate_banked.launches = 0
 fused_compound_banked.launches = 0
 fused_range_count.launches = 0
 gbdt_leafbits_banked.launches = 0
+gbdt_leafbits_sum.launches = 0

@@ -8,18 +8,21 @@
   ``fused_compound_banked``) launch over every shard, whose per-shard
   popcounts are summed on the device (the reference's ``shard_map`` +
   ``psum`` becomes the kernel's shard axis plus a device-side sum).
-* :class:`FusedGbdtExec` -- GBDT inference: the forest's threshold LUT
-  and one-hot feature masks stay on the device and one
+* :class:`FusedGbdtExec` -- GBDT inference: the forest's threshold LUT,
+  one-hot feature masks and leaves stay on the device; one
   :func:`~repro_torch.kernels.fused_query.gbdt_leafbits_banked` launch
-  computes every instance's leaf-address bitmap.
+  computes every instance's leaf-address bitmap and one
+  :func:`~repro_torch.kernels.fused_query.gbdt_leafbits_sum` launch sums
+  each instance's leaves from it, in ``assemble_leaves``' float32 order.
 
 Both mirror the reference package's ``kernels/fused_session.py`` layout
 byte for byte (ragged per-column blocks, identity-lane padding up to
 ``C_max``, gt-side saturation and the all-ones lt-side past a narrow
 column's max), so the same inputs give the same LUT and row indices.
 Bitmaps, counts and leaf addresses are exact integer math on the
-device; the few float aggregates (Q4/Q5 averages, GBDT leaf sums) are
-finished on the host with the reference's NumPy expressions.
+device; the Q4/Q5 averages are finished on the host with the reference's
+NumPy expressions, and the GBDT leaf sums on the card in the order of
+the reference's (``assemble_leaves``), so both are bit-exact.
 
 Row indices are resolved on the host (memoized per ``(plan, scalar)``
 and per range) and passed as kernel operands, so one kernel serves
@@ -36,8 +39,8 @@ the executor and runs every job) each of its ``d`` ranks holds its
 kernels on its block: the reference's ``shard_map``.  Its ``psum``
 becomes an all-reduce of the count, and the bitmap comes back through
 an all-gather of the ranks' blocks; the forest's instances are split
-over the ranks and their leaf addresses all-gathered.  A failing
-collective raises; nothing falls back to one rank.
+over the ranks and their predictions (or leaf addresses) all-gathered.
+A failing collective raises; nothing falls back to one rank.
 """
 
 from __future__ import annotations
@@ -47,7 +50,6 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.apps.gbdt import assemble_leaves
 from repro_torch.convert import words_to_numpy
 from repro_torch.core.encoding import ChunkPlan, ColumnPlan, make_plan
 from repro_torch.tracing import count, recording, span
@@ -57,6 +59,7 @@ from .fused_query import (
     fused_compound_banked,
     fused_predicate_banked,
     gbdt_leafbits_banked,
+    gbdt_leafbits_sum,
 )
 from .ops import (
     _resolve_scalar_cached,
@@ -333,18 +336,21 @@ class FusedTableExec:
 
 
 class FusedGbdtExec:
-    """GBDT leaf addresses for a whole batch in one kernel launch.
+    """GBDT predictions for a whole batch in two kernel launches.
 
     ``forest`` is duck-typed (``thresholds``, ``feature_idx``,
     ``leaves``, ``n_bits``, ``num_features``, ``num_trees``, ``depth``).
     ``plan`` (a :class:`ColumnPlan`) narrows the threshold LUT to the
     plan's width; instance values then clamp to the plan max (``v <
     threshold`` keeps its truth value, every threshold fitting the
-    plan).  Predictions go through :func:`assemble_leaves`, bit-exact
-    with the reference.  With ``mesh`` (1-D) every rank holds the LUT
-    and masks and computes its contiguous block of the instances (the
-    batch padded to a multiple of the ranks with the first instance, as
-    the reference pads it), and the addresses are all-gathered."""
+    plan).  The leaves are summed on the card by
+    :func:`~repro_torch.kernels.fused_query.gbdt_leafbits_sum`, which
+    keeps :func:`~repro_torch.apps.gbdt.assemble_leaves`' float32 order,
+    so predictions are bit-exact with the reference's.  With ``mesh``
+    (1-D) every rank holds the LUT, masks and leaves and computes its
+    contiguous block of the instances (the batch padded to a multiple
+    of the ranks with the first instance, as the reference pads it), and
+    the predictions are all-gathered."""
 
     def __init__(self, forest, num_chunks: int, plan=None,
                  device=None, mesh=None) -> None:
@@ -381,22 +387,24 @@ class FusedGbdtExec:
         masks = np.zeros((f_pad, w), np.uint32)
         masks[:f, :words.shape[1]] = words
         self.masks = torch.from_numpy(masks.view(np.int32)).to(self.device)
+        self.leaves = torch.from_numpy(np.ascontiguousarray(
+            forest.leaves, np.float32)).to(self.device)
         # node n's bit: word n // 32, bit n % 32 (depth-major in a tree)
         nodes = torch.arange(self.n_nodes, device=self.device)
         self._node_word = (nodes // 32).view(forest.num_trees, forest.depth)
         self._node_bit = (nodes % 32).view(forest.num_trees, forest.depth)
 
-    def leaf_addrs(self, X: np.ndarray) -> np.ndarray:
-        """[B, F] quantized instances -> [B, T] int32 leaf addresses
-        (exact; the whole device half of inference)."""
+    def _leaf_bits(self, X: np.ndarray) -> torch.Tensor:
+        """[B, F] quantized instances -> the leaf-address bitmap [B', W]
+        of this rank's block of them (B' = B off a mesh)."""
         forest, plan = self.forest, self.plan
         with span("pud.resolve"):
             X = np.asarray(X)
             if self._clamp:
                 X = np.minimum(X.astype(np.int64), self.mx)
-            b = X.shape[0]
             if self.mesh is not None:
                 rank, n_ranks, _ = _mesh_group(self.mesh)
+                b = X.shape[0]
                 b_pad = round_up(max(b, 1), n_ranks)
                 if b_pad != b:
                     X = np.concatenate(
@@ -410,13 +418,19 @@ class FusedGbdtExec:
                 cols += [lt, le]
             idx = np.concatenate(cols, axis=1).astype(np.int32)
         with span("pud.launch"):
-            bm = gbdt_leafbits_banked(self.lut, self.masks, idx,
-                                      self.num_chunks, forest.num_features)
+            return gbdt_leafbits_banked(self.lut, self.masks, idx,
+                                        self.num_chunks, forest.num_features)
+
+    def leaf_addrs(self, X: np.ndarray) -> np.ndarray:
+        """[B, F] quantized instances -> [B, T] int32 leaf addresses
+        (exact; the device half of inference, for inspection)."""
+        b = np.asarray(X).shape[0]
+        bm = self._leaf_bits(X)
         with span("pud.addrs"):
             # addr = sum_d bit(t, d) << (D - 1 - d), a depth level at a time
-            addrs = torch.zeros((X.shape[0], forest.num_trees),
+            addrs = torch.zeros((bm.shape[0], self.forest.num_trees),
                                 dtype=torch.int32, device=self.device)
-            for d in range(forest.depth):
+            for d in range(self.forest.depth):
                 bit = (bm[:, self._node_word[:, d]]
                        >> self._node_bit[:, d]) & 1
                 addrs = (addrs << 1) | bit
@@ -425,11 +439,17 @@ class FusedGbdtExec:
             return addrs.to(torch.int32).cpu().numpy()
 
     def infer(self, X: np.ndarray) -> np.ndarray:
-        """[B, F] -> [B] float32 predictions, bit-exact with the
-        reference (shared host-side leaf assembly)."""
+        """[B, F] -> [B] float32 predictions, summed on the card in
+        ``assemble_leaves``' float32 order (bit-exact with the
+        reference); only the B predictions are copied back."""
         X = np.asarray(X)
-        if X.shape[0] == 0:
+        b = X.shape[0]
+        if b == 0:
             return np.empty((0,), np.float32)
-        addrs = self.leaf_addrs(X)
+        bm = self._leaf_bits(X)
         with span("pud.assemble"):
-            return assemble_leaves(self.forest.leaves, addrs)
+            preds = gbdt_leafbits_sum(bm, self.leaves, self.forest.num_trees,
+                                      self.forest.depth)
+            if self.mesh is not None:
+                preds = _all_gather(preds, self.mesh)[:b]
+            return preds.cpu().numpy()

@@ -9,6 +9,10 @@ and row gathers are exact on them, and popcounts go through int64.
 
 from __future__ import annotations
 
+import functools
+import sys
+
+import numpy as np
 import torch
 
 from .common import (
@@ -153,6 +157,83 @@ def gbdt_leafbits_banked_ref(lut: torch.Tensor, masks: torch.Tensor,
             cmp = maj3(cmp, lut[idx[:, o + j]], lut[idx[:, o + c + j]])
         acc |= cmp & masks[f]
     return acc
+
+
+def _pairwise_sum(a: torch.Tensor) -> torch.Tensor:
+    """Float32 sums of the rows of ``a`` [B, n] in NumPy's pairwise
+    order (``pairwise_sum`` of its umath loops): below 8 elements left
+    to right from 0; up to 128, eight accumulators over strides of 8,
+    combined ``((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7))``,
+    then the ``n % 8`` tail in order; beyond, the two halves split at
+    ``n // 2`` rounded down to a multiple of 8, summed apart and
+    added."""
+    n = a.shape[1]
+    if n < 8:
+        res = torch.zeros(a.shape[0], dtype=a.dtype, device=a.device)
+        for i in range(n):
+            res = res + a[:, i]
+        return res
+    if n <= 128:
+        r = a[:, :8]
+        for i in range(8, n - n % 8, 8):
+            r = r + a[:, i:i + 8]
+        res = ((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3])) + \
+            ((r[:, 4] + r[:, 5]) + (r[:, 6] + r[:, 7]))
+        for i in range(n - n % 8, n):
+            res = res + a[:, i]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _pairwise_sum(a[:, :n2]) + _pairwise_sum(a[:, n2:])
+
+
+def numpy_row_run(n: int) -> int:
+    """How many values of a C-ordered float32 row of ``n`` NumPy's
+    ``.sum(-1)`` takes at a time: the whole row, or, where its iterator
+    buffers a row longer than ``np.getbufsize()`` (NumPy 2.0 does, 2.3
+    does not), the buffer, each buffer's pairwise sum added in turn.
+    Which, a probe of this NumPy tells, once per buffer size."""
+    bufsize = np.getbufsize()
+    return max(n, 1) if n <= bufsize else _probe_run(bufsize)
+
+
+@functools.lru_cache(maxsize=8)
+def _probe_run(bufsize: int) -> int:
+    n = 2 * bufsize + 136
+    rng = np.random.default_rng(0)
+    row = (rng.normal(size=(8, n)) * 10.0 ** rng.uniform(-3, 3, (8, n))
+           ).astype(np.float32)
+    want, vals = row.sum(-1).tobytes(), torch.from_numpy(row)
+    for run in (bufsize, sys.maxsize):
+        res = torch.zeros(8)
+        for t0 in range(0, n, run):
+            res = res + _pairwise_sum(vals[:, t0:t0 + run])
+        if res.numpy().tobytes() == want:
+            return run
+    raise RuntimeError(f"NumPy {np.__version__} sums a float32 row of "
+                       f"{n} values in neither known order")
+
+
+def gbdt_leafbits_sum_ref(bm: torch.Tensor, leaves: torch.Tensor,
+                          trees: int, depth: int) -> torch.Tensor:
+    """GBDT predictions from leaf-address bitmaps: ``bm`` [B, W] int32
+    (node ``n = t * depth + d`` at word ``n // 32``, bit ``n % 32``),
+    ``leaves`` [trees, L] float32.  Tree ``t``'s address is ``sum_d
+    bit(t, d) << (depth - 1 - d)``; returns [B] float32, the sum of
+    ``leaves[t, addr_t]`` over the trees as NumPy's ``.sum(-1)`` takes
+    it, so the bits of ``assemble_leaves`` over the same addresses held
+    C-ordered: from 0, each run of trees (:func:`numpy_row_run`) added
+    in turn as its pairwise sum (:func:`_pairwise_sum`)."""
+    nodes = torch.arange(trees * depth, device=bm.device)
+    bits = (bm[:, nodes // 32].to(torch.int64) >> (nodes % 32)) & 1
+    weights = 1 << torch.arange(depth - 1, -1, -1, device=bm.device)
+    addrs = (bits.view(bm.shape[0], trees, depth) * weights).sum(-1)
+    vals = leaves[torch.arange(trees, device=bm.device), addrs]
+    run = numpy_row_run(trees)
+    res = torch.zeros(bm.shape[0], dtype=leaves.dtype, device=bm.device)
+    for t0 in range(0, trees, run):
+        res = res + _pairwise_sum(vals[:, t0:t0 + run])
+    return res
 
 
 MINP_FILL = -1e30

@@ -33,8 +33,10 @@ that span's less its children's:
 ``pud.count``       a count's device sum, the wait and the 8-byte copy
 ``pud.bitmap``      a bitmap's copy and unpack to booleans
 ``pud.finish``      Q4/Q5's NumPy mean and Q5's phase-2 scalars
-``pud.addrs``       GBDT leaf addresses from the leaf bits, copied back
-``pud.assemble``    ``assemble_leaves``
+``pud.addrs``       ``FusedGbdtExec.leaf_addrs``: leaf addresses from
+                    the leaf bits, copied back (not on the predict path)
+``pud.assemble``    the leaf sum on the card (``gbdt_leafbits_sum``) and
+                    the predictions' copy back
 ==================  ====================================================
 
 Counters at index resolution (``FusedTableExec``), counted while a

@@ -5,7 +5,8 @@ load spans, all on the CPU.
 Under ``torch.profiler.profile`` a ``device="cpu"`` fused session marks
 each request with ``pud.query`` or ``pud.predict``, and inside it, one
 level deep, each step: ``pud.resolve``, ``pud.launch``, ``pud.count``,
-``pud.bitmap``, ``pud.finish``, ``pud.addrs``, ``pud.assemble``.  The
+``pud.bitmap``, ``pud.finish``, ``pud.assemble`` (a predict's leaf sum
+and copy back; ``pud.addrs`` marks only ``leaf_addrs``).  The
 counters are checked against counts worked out by hand.
 """
 
@@ -143,14 +144,13 @@ def test_fused_table_and_forest_jobs_give_the_span_tree():
          + scan + ["pud.count"]),
         ("pud.query", scan + ["pud.count"]),                    # compound
         ("pud.query", scan + ["pud.bitmap"]),                   # compound
-        ("pud.predict", ["pud.resolve", "pud.launch", "pud.addrs",
-                         "pud.assemble"]),
+        ("pud.predict", ["pud.resolve", "pud.launch", "pud.assemble"]),
     ]
     spans = tracing.profiled()
     assert {k: v["count"] for k, v in spans.items()} == {
         "pud.query": 6, "pud.predict": 1, "pud.resolve": 8,
         "pud.launch": 8, "pud.bitmap": 4, "pud.count": 3,
-        "pud.finish": 2, "pud.addrs": 1, "pud.assemble": 1}
+        "pud.finish": 2, "pud.assemble": 1}
     children = sum(v["total_s"] for k, v in spans.items()
                    if k not in OUTER)
     outer = sum(spans[k]["total_s"] for k in OUTER)
