@@ -1,15 +1,20 @@
 """The control of the comparison that decides ``correct``: the plain
-reference put in the program's place, computed one precision below the
-configuration's, and judged as a run judges the program.
+reference computed one precision below the configuration's, put in the
+program's place, and judged as a run judges the program.  Each kind
+says how (``kinds/<kind>.py``, ``control``):
 
-* query cells: every value and scalar cut to 16 bits (the configuration
+* ``table``: every value and scalar cut to 16 bits (the configuration
   declares 32), averages taken in float32 (the exact mean is float64);
-* predict cells: the float32 leaves cast to bfloat16, summed in float32.
+* ``forest``: the float32 leaves cast to bfloat16, summed in float32;
+* ``lm``: the reference's forward with every weight rounded to float8
+  e4m3 (a scale a weight tensor, the configuration's weights are
+  bfloat16), over the prompts and tokens a short window of the program
+  served; at each position the token its min-p sampler draws.
 
-It answers as many requests as a run checks (the mix's
-``check_sample``), drawn from the seed out of the requests a window of
-``--seconds`` would draw, and prints the numbers compared beside the
-configuration's limits, one JSON line a seed:
+The table and forest controls answer as many requests as a run checks
+(the mix's ``check_sample``), drawn from the seed out of the requests a
+window of ``--seconds`` would draw.  Each seed prints the numbers
+compared beside the configuration's limits, one JSON line:
 
     python3 clutchbench/control.py --workload <cell> --seeds 1,2,3 --seconds 10
 """
@@ -22,66 +27,45 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-if str(ROOT) not in sys.path:
-    sys.path.insert(0, str(ROOT))
+for _p in (str(ROOT), str(ROOT / "src")):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from clutchbench import check, data  # noqa: E402
+from clutchbench import check  # noqa: E402
+from clutchbench.data import derive  # noqa: E402
 from clutchbench.manifest import Manifest  # noqa: E402
-from clutchbench.reference.forest import Forest  # noqa: E402
-from clutchbench.reference.predicates import Columns  # noqa: E402
-from clutchbench.run import Requests, derive, judge  # noqa: E402
-
-CONTROL_BITS = 16
+from clutchbench.run import Cell, Requests  # noqa: E402
 
 
-class Control:
-    """Stands where the system under test stands in a run."""
-
-    def __init__(self, cfg: dict, inputs, device) -> None:
-        if cfg["kind"] == "table":
-            self.cols = Columns(inputs, cfg["n_bits"], device,
-                                bits=CONTROL_BITS)
-        else:
-            self.forest = Forest(inputs["feature_idx"],
-                                 inputs["thresholds"], inputs["leaves"],
-                                 device, control=True)
-        self.kind = cfg["kind"]
+class _Answers:
+    """A pool of requests with no system behind it."""
 
     def prepare(self, requests: list) -> list:
         return requests
 
-    def call(self, req):
-        if self.kind == "forest":
-            return self.forest.predict(req).cpu().numpy().astype(np.float32)
-        out = self.cols.answer(req)
-        return out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+
+def stand_in(cell: Cell, seconds: float, inputs, control) -> dict:
+    """The numbers compared when ``control.answer`` answers a sample of
+    the requests a window of ``seconds`` would draw."""
+    reqs = Requests(cell.generator(), cell.spec, seconds, _Answers())
+    reqs.extend()
+    rng = np.random.default_rng(derive(cell.seed, 3))
+    k = min(cell.spec["check_sample"], len(reqs.plain))
+    picks = sorted(rng.choice(len(reqs.plain), k, replace=False).tolist())
+    sample = [(i, control.answer(reqs.plain[i])) for i in picks]
+    del control
+    numbers, _ = cell.kind.judge(cell, inputs, reqs.plain, sample)
+    return numbers
 
 
 def readings(manifest: Manifest, name: str, seed: int, seconds: float,
              device: str = "cuda", overrides: dict | None = None) -> dict:
     """The control's numbers, each beside its limit, for one seed."""
-    overrides = overrides or {}
-    cell = manifest.cell(name)
-    cfg = {**manifest.config(cell["config"]), **overrides.get("config", {})}
-    spec = {**manifest.mix(cell["traffic"]), **overrides.get("mix", {})}
-    gen = manifest.generator(spec, cfg, seed, device)
-    if cfg["kind"] == "table":
-        inputs = data.lineitem(cfg, derive(seed, 0), device)
-    else:
-        inputs = data.forest(cfg, derive(seed, 0), device)
-    control = Control(cfg, inputs, device)
-    reqs = Requests(gen, spec, seconds, control)
-    reqs.extend()
-    rng = np.random.default_rng(derive(seed, 3))
-    k = min(spec["check_sample"], len(reqs.plain))
-    picks = sorted(rng.choice(len(reqs.plain), k, replace=False).tolist())
-    sample = [(i, control.call(reqs.plain[i])) for i in picks]
-    del control
-    numbers, _ = judge(cfg, spec, inputs, reqs, sample, device)
-    return numbers
+    cell = Cell(manifest, name, seed, device, overrides)
+    return cell.kind.control(cell, seconds)
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,9 @@
 """``BENCHMARK.json`` and the files it names, found by name:
 
-* ``configs/<config>.json``, the configuration as it is run
+* ``configs/<config>.json``, the configuration as it is run; its
+  ``kind`` names ``kinds/<kind>.py``, which builds the system under test
+  and judges its answers, and an ``lm`` configuration's ``reference``
+  names ``reference/<reference>.py``, its plain forward
 * ``mixes/<traffic>.json``, the traffic's parameters, which name the
   generator that draws them
 * ``generators/<generator>.py``, whose ``Generator(spec, cfg, seed,
@@ -60,6 +63,15 @@ class Manifest:
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         return module
+
+    def kind(self, name: str):
+        """The module ``kinds/<name>.py`` of a configuration's kind."""
+        return self._module("kinds", name)
+
+    def reference(self, name: str):
+        """The plain reference ``reference/<name>.py`` a configuration
+        names."""
+        return self._module("reference", name)
 
     def generator(self, spec: dict, cfg: dict, seed: int, device):
         """The generator the mix ``spec`` names, bound to a run."""

@@ -33,41 +33,81 @@ REFILL = "window.refill"
 
 class Window:
     """``with Window(on):`` profiles its body when ``on``; ``span(name)``
-    marks a harness span either way, at no cost when off."""
+    marks a harness span while the profiler records, at no cost
+    otherwise.  With ``calls = (first, count)`` the profiler records
+    only those calls of the window (:meth:`at` is told each call's
+    index before it starts): a mix whose every call makes thousands of
+    operations traces a stretch of it, not all."""
 
-    def __init__(self, on: bool) -> None:
-        self.on = on
+    def __init__(self, on: bool, calls: tuple | None = None) -> None:
+        self.on, self.calls = on, calls
         self.prof = None
         self.summary = None
+        #: the calls the profiler recorded, ``[first, end)``
+        self.traced = None
+
+    def _begin(self, first: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts, record_shapes=False,
+                            profile_memory=False, with_stack=False)
+        self.prof.__enter__()
+        self._outer = torch.profiler.record_function("window")
+        self._outer.__enter__()
+        self.traced = [first, first]
+
+    def _end(self, end: int, *exc) -> None:
+        exc = exc or (None, None, None)
+        self._outer.__exit__(*exc)
+        self.prof.__exit__(*exc)
+        self.traced[1] = end
+        self._recording = False
 
     def __enter__(self):
-        if self.on:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts, record_shapes=False,
-                                profile_memory=False, with_stack=False)
-            self.prof.__enter__()
-            self._outer = torch.profiler.record_function("window")
-            self._outer.__enter__()
+        self._recording = False
+        if self.on and self.calls is None:
+            self._begin(0)
+            self._recording = True
         return self
 
+    def at(self, i: int) -> None:
+        """Call ``i`` of the window is about to start."""
+        if not self.on:
+            return
+        first, count = self.calls
+        if i == first:
+            self._begin(i)
+            self._recording = True
+        elif i == first + count and self._recording:
+            self._end(i)
+
+    def close(self, calls: int) -> None:
+        """The window ended after ``calls`` calls: stop recording and
+        reduce the trace."""
+        if self._recording:
+            self._end(calls)
+        if not self.on:
+            return
+        if self.prof is None:
+            raise RuntimeError(f"the window made {calls} calls, so none of "
+                               f"the calls {self.calls} to trace")
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            self.prof.export_chrome_trace(path)
+            self.summary = reduce(path)
+        finally:
+            os.unlink(path)
+
     def __exit__(self, *exc):
-        if self.on:
-            self._outer.__exit__(*exc)
-            self.prof.__exit__(*exc)
-            fd, path = tempfile.mkstemp(suffix=".json")
-            os.close(fd)
-            try:
-                self.prof.export_chrome_trace(path)
-                self.summary = reduce(path)
-            finally:
-                os.unlink(path)
+        if self._recording:             # the window raised: stop tracing
+            self._end(self.traced[0], *exc)
         return False
 
     def span(self, name: str):
-        if self.on:
+        if self._recording:
             return torch.profiler.record_function(name)
         return contextlib.nullcontext()
 

@@ -2,15 +2,18 @@
 
     python3 clutchbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-The cell (``BENCHMARK.json``) names a configuration and a mix.  Set-up
-makes the inputs from the seed on the card, builds the system under
-test (``repro_torch``'s ``PudSession`` on the fused backend), draws the
-requests and warms up every request kind of the mix.  The window then
-drives one request at a time (a closed loop, one client) until
-``--seconds`` have passed and the request in flight has come back.
-Once it has closed, peak memory is read, the system is freed and a
-sample of the answers drawn from the seed is compared with the plain
-reference.  The last line of standard output is the result, as JSON.
+The cell (``BENCHMARK.json``) names a configuration and a mix; the
+configuration's ``kind`` names ``kinds/<kind>.py``, which makes the
+inputs from the seed and builds the system under test from them
+(``repro_torch``'s ``PudSession`` for a table or a forest, its
+``ServeEngine`` for a language model).  Set-up draws the requests and
+warms up every request kind of the mix.  The window then drives calls
+of the system, each taking the fresh requests it asks for (a closed
+loop), until ``--seconds`` have passed and the call in flight has come
+back; the requests still in flight are waited for after it.  Once it
+has closed, peak memory is read, the system is freed and a sample of
+the answers drawn from the seed is compared with the plain reference.
+The last line of standard output is the result, as JSON.
 
 ``--trace 0`` reports the cell's end-to-end metrics; ``--trace 1``
 profiles the window and reports its per-layer metrics.
@@ -38,12 +41,10 @@ for _p in (str(ROOT), str(ROOT / "src")):
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from clutchbench import check, data, work  # noqa: E402
+from clutchbench import check  # noqa: E402
 from clutchbench.data import derive  # noqa: E402
 from clutchbench.manifest import Manifest  # noqa: E402
 from clutchbench.profiling import REFILL, Window  # noqa: E402
-from clutchbench.reference.forest import Forest as RefForest  # noqa: E402
-from clutchbench.reference.predicates import Columns  # noqa: E402
 
 #: top-level module names that no run may load
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -60,20 +61,49 @@ def forbidden_modules() -> list[str]:
                   & set(FORBIDDEN))
 
 
+class Cell:
+    """One cell bound to a run: its configuration and mix (with
+    ``overrides``, ``{"config": {...}, "mix": {...}}``, which serve the
+    CPU tests only), the kind module that builds and judges it, the
+    seed and the device."""
+
+    def __init__(self, manifest: Manifest, name: str, seed: int, device,
+                 overrides: dict | None = None, control: bool = False
+                 ) -> None:
+        overrides = overrides or {}
+        entry = manifest.cell(name)
+        self.manifest, self.name = manifest, name
+        self.seed, self.device, self.control = seed, device, control
+        self.overrides = overrides
+        self.cfg = {**manifest.config(entry["config"]),
+                    **overrides.get("config", {})}
+        self.spec = {**manifest.mix(entry["traffic"]),
+                     **overrides.get("mix", {})}
+        self.kind = manifest.kind(self.cfg["kind"])
+
+    def generator(self):
+        """The mix's generator, bound to this run's seed."""
+        return self.manifest.generator(self.spec, self.cfg, self.seed,
+                                       self.device)
+
+
 class Reservoir:
-    """A uniform sample of ``k`` of the window's answers, drawn from the
+    """A uniform sample of ``k`` of the answers offered, drawn from the
     seed as they come, so that memory stays bounded."""
 
     def __init__(self, k: int, seed: int) -> None:
         self.k = k
         self.rng = np.random.default_rng(seed)
         self.items: list = []
+        self.seen = 0
 
     def offer(self, i: int, out) -> None:
-        if i < self.k:
+        """Offer the answer ``out`` to request ``i``."""
+        n, self.seen = self.seen, self.seen + 1
+        if n < self.k:
             self.items.append((i, out))
             return
-        j = int(self.rng.integers(0, i + 1))
+        j = int(self.rng.integers(0, n + 1))
         if j < self.k:
             self.items[j] = (i, out)
 
@@ -95,162 +125,186 @@ class Requests:
         self.prepared += self.system.prepare(plain)
 
 
+class Record:
+    """What a window did: ``n`` calls, each call's latency (``lat``) and
+    the fresh requests it took (``takes``), calls that raised
+    (``failed``, the first traceback in ``error``), the window's seconds
+    less any refill, and the trace summary (``--trace 1``) of the calls
+    ``traced`` = [first, end)."""
+
+    def __init__(self, lat, takes, failed, error, window_s, summary,
+                 traced, plain, system) -> None:
+        self.lat, self.takes, self.n = lat, takes, len(lat)
+        self.failed, self.error = failed, error
+        self.window_s, self.summary = window_s, summary
+        self.traced = tuple(traced) if traced else (0, self.n)
+        self.plain, self.system = plain, system
+
+    @property
+    def p95_s(self) -> float:
+        return p95(self.lat)
+
+
 def window(system, reqs: Requests, seconds: float, trace: bool,
-           keep: Reservoir):
-    """Drive requests until ``seconds`` of the window have passed;
-    returns (latencies, failures, first error, window seconds, trace
-    summary).  Drawing more requests, should the pool run out, stops
-    the window's clock: it is the harness's work, not the system's."""
+           keep: Reservoir, traced_calls: tuple | None = None) -> Record:
+    """Drive calls until ``seconds`` of the window have passed: each
+    takes the next ``system.wants()`` requests of the pool and returns
+    the ``(request, answer)`` pairs it finished, offered to ``keep``.
+    Drawing more requests, should the pool run out, stops the window's
+    clock: it is the harness's work, not the system's.  ``trace``
+    profiles the window, or only its calls ``traced_calls`` = (first,
+    count) where the mix names them."""
     lat: list[float] = []
+    takes: list[int] = []
     failed, error, paused = 0, None, 0.0
-    call, prepared = system.call, reqs.prepared
-    with Window(trace) as win:
+    call, wants, prepared = system.call, system.wants, reqs.prepared
+    win = Window(trace, traced_calls)
+    tick = win.at if trace and traced_calls else None
+    with win:
         i, start = 0, time.perf_counter()
         end = start + seconds
         while True:
-            if i == len(prepared):
+            if tick:
+                tick(len(lat))
+            k = wants()
+            while i + k > len(prepared):
                 r0 = time.perf_counter()
                 with win.span(REFILL):
                     reqs.extend()
-                prepared = reqs.prepared
                 dt = time.perf_counter() - r0
                 paused += dt
                 end += dt
-            req = prepared[i]
             with win.span("window.request"):
                 t0 = time.perf_counter()
                 try:
-                    out = call(req)
-                except Exception:           # an answer that never came
-                    out = None
+                    done = call(prepared[i:i + k], i)
+                except Exception:           # answers that never came
+                    done = [(j, None) for j in range(i, i + k)]
                     failed += 1
                     error = error or traceback.format_exc()
                 t1 = time.perf_counter()
             lat.append(t1 - t0)
-            keep.offer(i, out)
-            i += 1
+            takes.append(k)
+            for j, out in done:
+                keep.offer(j, out)
+            i += k
             if t1 >= end:
                 break
-    return lat, failed, error, t1 - start - paused, win.summary
+        win.close(len(lat))
+    return Record(lat, takes, failed, error, t1 - start - paused,
+                  win.summary, win.traced, reqs.plain, system)
 
 
-def kind_of(req) -> str:
-    if not isinstance(req, tuple):
-        return "predict"
-    if req[0] == "compound":
-        return f"compound{len(req[3])}{'count' if req[1] else 'bitmap'}"
-    return req[0]
+def warm_up(system, requests: list) -> None:
+    """Every request of the warm-up through the calls the window makes,
+    then whatever is still in flight, so the window opens idle."""
+    i = 0
+    while i < len(requests):
+        k = min(system.wants(), len(requests) - i)
+        system.call(requests[i:i + k], i)
+        i += k
+    lost = [j for j, out in system.drain() if out is None]
+    if lost:
+        raise RuntimeError(f"warm-up requests {lost} never came back")
 
 
-def by_kind(plain: list, lat: list) -> str:
-    """Each request kind's count, median and 95th percentile latency."""
+def by_kind(kind, w: Record) -> str:
+    """Each call kind's count, median and 95th percentile latency."""
     groups: dict[str, list] = {}
-    for req, t in zip(plain, lat):
-        groups.setdefault(kind_of(req), []).append(t * 1e3)
+    first = 0
+    for t, k in zip(w.lat, w.takes):
+        groups.setdefault(kind.label(w.plain[first:first + k]), []).append(
+            t * 1e3)
+        first += k
     return "; ".join(f"{k} n={len(v)} med={sorted(v)[len(v) // 2]:.3f} "
                      f"p95={p95(v):.3f}" for k, v in sorted(groups.items()))
 
 
-def least_seconds(entry: str, plain: list, n: int, cfg: dict,
-                  batch: int) -> float:
-    """The least time the chip could take for the first ``n`` requests."""
-    if entry == "query":
-        nbytes = sum(work.query_bytes(r, cfg["records"], cfg["n_bits"],
-                                      cfg["num_chunks"]) for r in plain[:n])
-        return work.least_seconds(nbytes, 0.0)
-    nbytes, ops = work.predict_work(batch, cfg["trees"], cfg["depth"],
-                                    cfg["features"], cfg["n_bits"])
-    return work.least_seconds(n * nbytes, n * ops)
-
-
-def build(cfg: dict, seed: int, device):
-    """(the inputs, the system under test) for the configuration."""
-    from clutchbench import system as sut
-
-    if cfg["kind"] == "table":
-        columns = data.lineitem(cfg, derive(seed, 0), device)
-        return columns, lambda: sut.Table(cfg, columns, device)
-    arrays = data.forest(cfg, derive(seed, 0), device)
-    return arrays, lambda: sut.Forest(cfg, arrays, device)
-
-
-def judge(cfg: dict, spec: dict, inputs, reqs: Requests, sample: list,
-          device) -> tuple[dict, dict]:
-    """(the numbers compared, each beside its limit; everything the
-    comparison found)."""
-    limits = dict(cfg["limits"])
-    if reqs.gen.entry == "query":
-        cols = Columns(inputs, cfg["n_bits"], device)
-        found = check.queries([(reqs.plain[i], out) for i, out in sample],
-                              cols, device)
-        if not any(e["query"] == "Q4" for e in spec["mix"]):
-            limits.pop("avg_rel_gap", None)
-    else:
-        ref = RefForest(inputs["feature_idx"], inputs["thresholds"],
-                        inputs["leaves"], device)
-        found = check.predictions(
-            [(reqs.plain[i], out) for i, out in sample], ref)
-    return check.judged(found, limits), found
-
-
 def run_cell(manifest: Manifest, name: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", overrides: dict | None = None,
-             t_start: float | None = None) -> tuple[dict, dict]:
+             t_start: float | None = None, control: bool = False
+             ) -> tuple[dict, dict]:
     """One run of one cell: (the result object, everything the
-    comparison found).  ``overrides`` (``{"config": {...}, "mix":
-    {...}}``) and ``device="cpu"`` serve the CPU tests only."""
+    comparison found).  ``overrides`` and ``device="cpu"`` serve the CPU
+    tests only; ``control`` has the kind judge its control in the
+    program's place, where the control needs the program's answers."""
     t_start = time.perf_counter() if t_start is None else t_start
-    overrides = overrides or {}
-    cell = manifest.cell(name)
-    cfg = {**manifest.config(cell["config"]), **overrides.get("config", {})}
-    spec = {**manifest.mix(cell["traffic"]), **overrides.get("mix", {})}
-    gen = manifest.generator(spec, cfg, seed, device)
+    marks = [("imports", time.perf_counter())]
+    cell = Cell(manifest, name, seed, device, overrides, control)
+    kind = cell.kind
+    threads = torch.get_num_threads()
+    if "host_threads" in cell.spec:
+        # the threads of the program's CPU tensor operations: where a
+        # mix fixes them, idle workers spin beside the caller no more
+        torch.set_num_threads(cell.spec["host_threads"])
+    gen = cell.generator()
     on_card = device != "cpu"
     with torch.profiler.record_function("setup.generate"):
-        inputs, make = build(cfg, seed, device)
+        inputs, make = kind.build(cell)
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    marks.append(("inputs", time.perf_counter()))
     with torch.profiler.record_function("setup.build"):
         system = make()
-    reqs = Requests(gen, spec, seconds, system)
+    marks.append(("system", time.perf_counter()))
+    reqs = Requests(gen, cell.spec, seconds, system)
     reqs.extend()
-    for req in system.prepare(gen.warmup()):
-        system.call(req)
+    marks.append(("requests", time.perf_counter()))
+    warm_up(system, system.prepare(gen.warmup()))
     if on_card:
         torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t_start
+    marks.append(("warm-up", time.perf_counter()))
+    setup_s = marks[-1][1] - t_start
+    parts = ", ".join(f"{k} {t - t0:.2f}" for (k, t), t0 in
+                      zip(marks, [t_start] + [t for _, t in marks]))
 
-    keep = Reservoir(spec["check_sample"], derive(seed, 3))
+    keep = Reservoir(cell.spec["check_sample"], derive(seed, 3))
     # the request pool is the harness's: keep the collector from walking
     # it during the window
     gc.collect()
     gc.freeze()
     try:
-        lat, failed, error, window_s, summary = window(
-            system, reqs, seconds, trace, keep)
+        w = window(system, reqs, seconds, trace, keep,
+                   cell.spec.get("trace_calls"))
     finally:
         gc.unfreeze()
-    n = len(lat)
+    # the requests still in flight, waited for; one that never comes
+    # has failed
+    t_window = time.perf_counter()
+    late = system.drain()
+    t_drain = time.perf_counter()
+    for j, out in late:
+        keep.offer(j, out)
+    failed = w.failed + sum(out is None for _, out in late)
+    if not trace:
+        values = {**kind.values(cell, w), "setup_s": setup_s}
+    else:
+        a, b = w.traced
+        w.summary.update(entry=gen.entry, requests=b - a,
+                         **kind.facts(cell, w))
 
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     system.close()
     del system
+    w.system = None
     reqs.prepared = []
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    t_check = time.perf_counter()
     with torch.profiler.record_function("check"):
-        numbers, found = judge(cfg, spec, inputs, reqs, keep.items, device)
-    if error:
-        print(f"{failed} of {n} requests raised; the first:\n{error}",
+        numbers, found = kind.judge(cell, inputs, reqs.plain, keep.items)
+    print(f"set-up seconds: {parts}", file=sys.stderr)
+    print(f"seconds: set-up {setup_s:.1f}, window and its trace "
+          f"{t_window - t_start - setup_s:.1f}, drain {t_drain - t_window:.1f}"
+          f", check {time.perf_counter() - t_check:.1f}", file=sys.stderr)
+    if w.error:
+        print(f"{w.failed} of {w.n} calls raised; the first:\n{w.error}",
               file=sys.stderr)
-    print("latency by kind (ms): " + by_kind(reqs.plain[:n], lat),
-          file=sys.stderr)
+    print("latency by kind (ms): " + by_kind(kind, w), file=sys.stderr)
 
-    batch = spec.get("batch", 0)
-    rows = n * batch
     device_info = {
         "platform": "gpu" if on_card else "cpu",
         "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
@@ -258,22 +312,13 @@ def run_cell(manifest: Manifest, name: str, seed: int, seconds: float,
         "memory_peak_bytes": int(peak),
     }
     result = {"correct": failed == 0 and check.passed(numbers),
-              "attempted": n, "failed": failed}
+              "attempted": sum(w.takes), "failed": failed}
     if not trace:
-        values = {
-            "scan_qps": n / window_s,
-            "count_qps": n / window_s,
-            "scan_p95_ms": p95(lat) * 1e3,
-            "predict_rows_per_s": rows / window_s,
-            "setup_s": setup_s,
-        }
         metrics = {m["name"]: {"value": values[m["name"]],
                                "unit": m["unit"]}
                    for m in manifest.end_to_end(name)}
     else:
-        summary.update(entry=gen.entry, requests=n, rows=rows,
-                       least_s=least_seconds(gen.entry, reqs.plain, n, cfg,
-                                             batch))
+        summary = w.summary
         metrics = {}
         for m in manifest.per_layer(name):
             v = manifest.reader(m["name"])(summary)
@@ -287,6 +332,7 @@ def run_cell(manifest: Manifest, name: str, seed: int, seconds: float,
         result["breakdown"] = {"device_ops": summary["device_ops"],
                                "idle_gaps": summary["idle_gaps"]}
     result["checks"] = numbers
+    torch.set_num_threads(threads)
     return result, found
 
 

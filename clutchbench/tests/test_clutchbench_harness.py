@@ -2,6 +2,7 @@
 a tiny run through the port's CPU path, the faults that must come out
 as not correct, and the control."""
 
+import dataclasses
 import json
 import re
 import shutil
@@ -21,6 +22,15 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
+
+def _reduced(arch):
+    """The port's registry entry of ``arch`` at its smoke scale (float32),
+    as a configuration's ``model`` object."""
+    from repro_torch.configs.registry import get_config
+    return json.loads(json.dumps(dataclasses.asdict(
+        get_config(arch).reduced())))
+
+
 # the cells cut to a size the CPU path runs in a second
 TINY = {
     "tpch-lineitem-sf10": {"config": {"records": 20000, "orders": 5000,
@@ -28,6 +38,10 @@ TINY = {
                            "mix": {"pool_per_s": 40, "check_sample": 64}},
     "catboost-higgs-1000x6": {"config": {"trees": 40},
                               "mix": {"batch": 32, "pool_per_s": 20}},
+    "minitron-8b": {"config": {"model": _reduced("minitron-8b")},
+                    "mix": {"slots": 4, "max_len": 40, "prompt_len": 24,
+                            "new_tokens": 8, "pool_per_s": 20,
+                            "check_sample": 4}},
 }
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
@@ -62,15 +76,18 @@ def test_drawing_more_requests_stops_the_window_clock():
         def prepare(self, reqs):
             return list(reqs)
 
-        def call(self, req):
+        def wants(self):
+            return 1
+
+        def call(self, batch, first):
             time.sleep(0.02)
-            return 0
+            return [(first, 0)]
 
     reqs = run.Requests(SlowGen(), {"pool_per_s": 10}, 0.3, Sleeper())
     reqs.extend()                           # set-up's pool: 3 requests
     t0 = time.perf_counter()
-    lat, failed, _, window_s, _ = run.window(Sleeper(), reqs, 0.3, False,
-                                             run.Reservoir(4, 1))
+    w = run.window(Sleeper(), reqs, 0.3, False, run.Reservoir(4, 1))
+    lat, failed, window_s = w.lat, w.failed, w.window_s
     wall = time.perf_counter() - t0
     refills = len(reqs.plain) // 3 - 1
     assert failed == 0 and refills >= 1
@@ -142,7 +159,7 @@ def test_every_named_file_exists():
         assert m.config(w["config"])["name"] == w["config"]
         spec = m.mix(w["traffic"])
         gen = m.generator(spec, m.config(w["config"]), 1, "cpu")
-        assert gen.entry in ("query", "predict")
+        assert gen.entry in ("query", "predict", "generate")
     for metric in BENCH["per_layer"]:
         assert callable(m.reader(metric["name"]))
 
@@ -286,6 +303,92 @@ def _half_the_batch(monkeypatch):
     monkeypatch.setattr(FusedGbdtExec, "infer", half)
 
 
+def _alter_token(monkeypatch):
+    """Every drawn token moved to the next id, where the sampler draws
+    it."""
+    from repro_torch.serve import engine
+    orig = engine.sample
+
+    def moved(cfg, logits, generator, sc):
+        return (orig(cfg, logits, generator, sc) + 1) % cfg.vocab
+    monkeypatch.setattr(engine, "sample", moved)
+
+
+def _perturb_logit(monkeypatch):
+    """One vocabulary entry's logit raised by 5 in every decode step."""
+    from repro_torch.models import lm
+    orig = lm.decode_step
+
+    def raised(cfg, params, cache, tokens, pos, cross=None):
+        logits, cache = orig(cfg, params, cache, tokens, pos, cross)
+        logits[..., 7] += 5.0
+        return logits, cache
+    monkeypatch.setattr(lm, "decode_step", raised)
+
+
+def _half_the_slots(monkeypatch):
+    """Each decode step computes the first half of its slots only; the
+    other half gets their logits."""
+    from repro_torch.models import lm
+    orig = lm.decode_step
+
+    def half(cfg, params, cache, tokens, pos, cross=None):
+        h = max(1, tokens.shape[0] // 2)
+        part = {k: {n: t[:, :h] for n, t in v.items()}
+                for k, v in cache.items()}
+        logits, _ = orig(cfg, params, part, tokens[:h], pos, cross)
+        idx = torch.arange(tokens.shape[0]) % h
+        return logits[idx], cache
+    monkeypatch.setattr(lm, "decode_step", half)
+
+
+def _state_unchanged(monkeypatch):
+    """A decode step that leaves the K/V cache as it found it."""
+    from repro_torch.models import lm
+    orig = lm.decode_step
+
+    def stale(cfg, params, cache, tokens, pos, cross=None):
+        kept = {k: {n: t.clone() for n, t in v.items()}
+                for k, v in cache.items()}
+        logits, _ = orig(cfg, params, cache, tokens, pos, cross)
+        for k, v in kept.items():
+            for n, t in v.items():
+                cache[k][n].copy_(t)
+        return logits, cache
+    monkeypatch.setattr(lm, "decode_step", stale)
+
+
+def _wrong_slot(monkeypatch):
+    """A prefill's cache merged into the next slot, not its own."""
+    from repro_torch.serve.engine import ServeEngine
+    orig = ServeEngine._merge
+
+    def shifted(self, full, one, slot):
+        if full is self.cache:          # the outermost call, once
+            slot = (slot + 1) % self.num_slots
+        orig(self, full, one, slot)
+    monkeypatch.setattr(ServeEngine, "_merge", shifted)
+
+
+def _drop_request(monkeypatch):
+    """The first of the window's requests to finish (not the warm-up's,
+    which ask for fewer tokens) is freed from its slot but never
+    returned."""
+    from repro_torch.serve.engine import ServeEngine
+    orig = ServeEngine.step
+    new = TINY["minitron-8b"]["mix"]["new_tokens"]
+    dropped = []
+
+    def lossy(self):
+        done = orig(self)
+        for r in list(done):
+            if not dropped and r.max_new_tokens == new:
+                dropped.append(r)
+                done.remove(r)
+        return done
+    monkeypatch.setattr(ServeEngine, "step", lossy)
+
+
 FAULTS = [
     ("lineitem-sf10.adhoc-count", _alter_count),
     ("lineitem-sf10.adhoc-count", _half_the_rows),
@@ -295,6 +398,12 @@ FAULTS = [
     ("higgs-1000x6.bulk-65536", _half_the_batch),
     ("higgs-1000x6.online-256", _alter_prediction),
     ("higgs-1000x6.online-256", _half_the_batch),
+    ("minitron-8b.gen-1024x128", _alter_token),
+    ("minitron-8b.gen-1024x128", _perturb_logit),
+    ("minitron-8b.gen-1024x128", _half_the_slots),
+    ("minitron-8b.gen-1024x128", _state_unchanged),
+    ("minitron-8b.gen-1024x128", _wrong_slot),
+    ("minitron-8b.gen-1024x128", _drop_request),
 ]
 
 
@@ -321,12 +430,37 @@ def test_a_request_that_raises_is_not_correct(monkeypatch):
     assert res["failed"] == 1 and not res["correct"]
 
 
+def _control_size(cell):
+    """The size the control is held at: the tiny one, but for the
+    language model a bfloat16 one of 16 layers of width 256 and 8,192
+    ids, where the cell's limits part the program (0.29-0.44 logit gap)
+    from the control (3.1-3.9) as they do at full size; at the smoke
+    scale the control's gap is 1.7-2.2."""
+    if Manifest(ROOT / "BENCHMARK.json").cell(cell)["config"] != \
+            "minitron-8b":
+        return _tiny(cell)
+    model = dict(_reduced("minitron-8b"), num_layers=16, d_model=256,
+                 d_ff=1024, vocab=8192, n_heads=4, n_kv_heads=2, d_head=64,
+                 param_dtype="bfloat16", compute_dtype="bfloat16")
+    return {"config": {"model": model}, "mix": TINY["minitron-8b"]["mix"]}
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails_the_limits(cell):
     numbers = readings(Manifest(ROOT / "BENCHMARK.json"), cell,
                        2 ** 31 + 11, 1.0, device="cpu",
-                       overrides=_tiny(cell))
+                       overrides=_control_size(cell))
     assert any(v["value"] > v["limit"] for v in numbers.values()), numbers
+
+
+def test_at_the_control_size_the_program_is_correct():
+    """The other side of the language model's control: the program held
+    at the control's size passes the cell's limits."""
+    cell = "minitron-8b.gen-1024x128"
+    res, _ = run.run_cell(Manifest(ROOT / "BENCHMARK.json"), cell,
+                          2 ** 31 + 11, 0.5, False, device="cpu",
+                          overrides=_control_size(cell))
+    assert res["correct"], res["checks"]
 
 
 # ------------------------------------------------------------------ #
@@ -354,6 +488,28 @@ def test_summary_of_a_synthetic_trace():
                                   "cudaStreamSynchronize": 100e-9,
                                   "window.request": 300e-9})
     assert s["device_ops"][0][0] == "k1"
+
+
+def test_a_stretch_of_calls_is_traced_alone():
+    """With ``calls = (1, 2)`` the profiler records calls 1 and 2 of
+    five, and the summary's window is theirs."""
+    win = profiling.Window(True, (1, 2))
+    with win:
+        for i in range(5):
+            win.at(i)
+            with win.span("window.request"):
+                torch.ones(64).sum()
+        win.close(5)
+    assert win.traced == [1, 3]
+    assert win.summary["window_s"] > 0
+
+
+def test_a_stretch_never_reached_raises():
+    win = profiling.Window(True, (3, 2))
+    with win:
+        win.at(0)
+        with pytest.raises(RuntimeError, match="none of the calls"):
+            win.close(1)
 
 
 def test_refill_spans_are_cut_out_of_the_traced_window():

@@ -19,9 +19,17 @@ from clutchbench.manifest import Manifest
 m = Manifest({bench!r})
 tiny = {{"config": {{"records": 4000, "orders": 1000, "parts": 800,
                      "suppliers": 40}}, "mix": {{"pool_per_s": 20}}}}
-for cell in ("lineitem-sf10.tpch-where", "higgs-1000x6.online-256"):
-    ov = tiny if "lineitem" in cell else {{"config": {{"trees": 8}},
-                                            "mix": {{"batch": 8}}}}
+from repro_torch.configs.registry import get_config
+import dataclasses, json
+model = json.loads(json.dumps(dataclasses.asdict(
+    get_config("minitron-8b").reduced())))
+lm = {{"config": {{"model": model}},
+      "mix": {{"slots": 2, "max_len": 20, "prompt_len": 12, "new_tokens": 4,
+              "check_sample": 2, "trace_calls": [0, 1]}}}}
+for cell in ("lineitem-sf10.tpch-where", "higgs-1000x6.online-256",
+             "minitron-8b.gen-1024x128"):
+    ov = tiny if "lineitem" in cell else lm if "minitron" in cell else {{
+        "config": {{"trees": 8}}, "mix": {{"batch": 8}}}}
     for trace in (False, True):
         assert run.run_cell(m, cell, 9, 0.2, trace, device="cpu",
                             overrides=ov)[0]["correct"]
@@ -75,6 +83,7 @@ def test_the_reference_imports_nothing_of_the_program():
     loaded = _loaded(
         f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
         "import clutchbench.reference.forest, "
-        "clutchbench.reference.predicates; "
+        "clutchbench.reference.predicates, "
+        "clutchbench.reference.lm_dense; "
         "print(' '.join({k.split('.')[0] for k in sys.modules}))")
     assert "repro_torch" not in loaded and not loaded & FORBIDDEN

@@ -18,6 +18,9 @@ import math
 # logic of these jobs, so the bound stays a lower bound
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# the same data sheet (as the port's launch/roofline.py states it): dense
+# bfloat16 on the tensor cores, the rate of a language model's products
+PEAK_BF16_FLOPS_S = 989e12
 
 
 def chunk_widths(n_bits: int, chunks: int) -> list[int]:
@@ -111,3 +114,73 @@ def predict_work(batch: int, trees: int, depth: int, features: int,
 def least_seconds(nbytes: float, ops: float) -> float:
     """The larger of the byte bound and the operation bound."""
     return max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S)
+
+
+class DecoderWork:
+    """The least work of a decoder language model's serving calls,
+    counted from the sizes of the tensors built for it, whatever its
+    family:
+
+    * every weight is read once a call (a prefill, or a decode step of
+      all slots), but a lookup table, of which only the rows of the
+      call's tokens are read;
+    * a cache leaf with a sequence axis is read up to each slot's
+      position, and a prefill writes its rows; any other cache leaf is
+      read and written whole for each slot;
+    * float32 logits are written once, a row each position asked for;
+    * 2 FLOPs a weight of every product and token (the head's tokens
+      only those whose logits are asked for), plus attention's two
+      products, 2 * n_heads * d_head FLOPs a (query, key) pair for each
+      sequence leaf and layer.
+
+    ``weights``: ``(name, shape, bytes a element)``; ``cache``: the
+    same for a cache of ``slots`` slots of ``max_len`` positions, each
+    leaf ``[layers, slots, ...]``."""
+
+    def __init__(self, weights: list, lookup, last_only, cache: list,
+                 slots: int, max_len: int, n_heads: int, d_head: int
+                 ) -> None:
+        self.weight_bytes = self.row_bytes = 0.0
+        self.flops_token = self.flops_last = 0.0
+        self.logit_row_bytes = 0.0
+        for name, shape, size in weights:
+            n = math.prod(shape)
+            if name in lookup:
+                self.row_bytes += shape[-1] * size
+                continue
+            self.weight_bytes += n * size
+            if len(shape) < 2:
+                continue
+            if name in last_only:
+                self.flops_last += 2 * n
+                self.logit_row_bytes += shape[-1] * 4
+            else:
+                self.flops_token += 2 * n
+        self.pos_bytes = self.state_bytes = self.flops_pair = 0.0
+        for _, shape, size in cache:
+            if len(shape) >= 3 and shape[2] == max_len:
+                per_pos = math.prod(shape) / (slots * max_len)
+                self.pos_bytes += per_pos * size
+                self.flops_pair += 2 * n_heads * d_head * shape[0]
+            else:
+                self.state_bytes += math.prod(shape) / slots * size
+
+    def prefill(self, tokens: int) -> float:
+        """Least seconds of one sequence's prefill of ``tokens``, with
+        the logits of its last position."""
+        nbytes = (self.weight_bytes + tokens * self.row_bytes
+                  + tokens * self.pos_bytes + self.state_bytes
+                  + self.logit_row_bytes)
+        flops = (self.flops_token * tokens + self.flops_last
+                 + self.flops_pair * tokens * (tokens + 1) / 2)
+        return max(nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS_S)
+
+    def decode(self, slots: int, positions: int) -> float:
+        """Least seconds of one decode step of ``slots`` sequences whose
+        attended positions, each slot's own, sum to ``positions``."""
+        nbytes = (self.weight_bytes + slots * self.row_bytes
+                  + positions * self.pos_bytes + 2 * slots * self.state_bytes
+                  + slots * self.logit_row_bytes)
+        flops = ((self.flops_token + self.flops_last) * slots
+                 + self.flops_pair * positions)
+        return max(nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS_S)
