@@ -111,8 +111,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
    of the full model is 33.7 GB, and the card's machine allows 45 GiB
    of disk writes a run): 6 steps against 3 steps, a checkpoint and a
    fresh resumed run to step 6, steps 3-5 within 2e-3; the checkpoint
-   save and restore times; a step there with remat and without.  None
-   of our kernels runs in training (their counts stay 0).
+   save and restore times; a step there with remat and without.  Of
+   our kernels only ``rmsnorm`` runs in a train step (forward; its
+   gradient is its plain version's, recomputed).
 10. The reference's "opt" variant (``repro_torch.launch.dryrun.
     apply_variant``) at full width, after phase 9, each part on a freed
     card and nothing written to disk: (a) ``granite-moe-3b-a800m``
@@ -332,6 +333,14 @@ KERNEL_META = {
     "minp_mask": (
         "src/repro_torch/kernels/csrc/minp_mask.cu",
         "src/repro/kernels/minp_mask.py:47"),
+    "selective_scan": (
+        "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "none: the reference scans with lax.scan in XLA (models/ssm.py "
+        "mamba_block)"),
+    "rmsnorm": (
+        "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "none: the reference leaves its norm to XLA (models/layers.py "
+        "rmsnorm)"),
 }
 
 # (n_bits, chunks) of the compare front-ends, as in the reference's
@@ -475,6 +484,28 @@ DRYRUN_CELLS = (("granite-moe-3b-a800m", "train_4k"),
                 ("rwkv6-3b", "long_500k"),
                 ("jamba-v0.1-52b", "prefill_32k"))
 DRYRUN_TIMEOUT_S = 600
+# selective_scan at the Jamba2 Mini cell's shapes: (sequences, tokens)
+# of a batch-1 prefill of 4,999 tokens and of a decode step of 128 slots,
+# at d_inner 8,192 and d_state 16
+SCAN_SHAPES = ((1, 4999), (128, 1))
+SCAN_DIN, SCAN_N = 8192, 16
+# the kernel against its plain version.  In bf16 the plain version rounds
+# delta = softplus(dt + bias) to bf16 (2^-9 of it, which enters
+# exp(delta A) times |delta A|), and the scan's output before the D term
+# and the gate (three more roundings); the kernel keeps float32 and rounds
+# y once: y and the float32 state within 2^-6 of their largest |value| (4
+# bf16 ulps of it), y within 2^-10 on average.  In float32 (exp2 of a
+# product against exp, in another order) both within 1e-4 of the largest.
+SCAN_BF16_TOL, SCAN_Y_MEAN_TOL, SCAN_F32_TOL = 2.0 ** -6, 2.0 ** -10, 1e-4
+# rmsnorm at the Jamba2 Mini cell's shapes: (tokens, groups, d, row
+# stride): a prefill's and a decode step's hidden rows, a token's dt
+# (256 of the 288 x_proj columns) and its B and C side by side
+NORM_SHAPES = ((4999, 1, 4096, 4096), (112, 1, 4096, 4096),
+               (4999, 1, 256, 288), (4999, 2, 16, 288))
+# the kernel against its plain version: the same float32 arithmetic but
+# for the order of the sum of squares, rounded once; bf16 within 2^-7 of
+# the largest |y| (2 ulps of it), float32 within 1e-5
+NORM_BF16_TOL, NORM_F32_TOL = 2.0 ** -7, 1e-5
 # minp_mask edge values: +-0, +-NaN, +-inf, denormals, the fill itself
 MINP_EDGE = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45,
                       -1e-45, 1e-38, -1e-38, -1e30, 3.0, -3.0, 1e30],
@@ -556,6 +587,198 @@ def leafsum_case(torch, g, b: int, t: int, d: int):
     bits = torch.nn.functional.pad(bits, (0, w * 32 - t * d))
     words = (bits.view(b, w, 32) << torch.arange(32, device=dev)).sum(-1)
     return at, lv, to_int32_bits(words)
+
+
+def scan_inputs(torch, g, bsz: int, s: int, din: int, dtype,
+                with_state: bool, wide: bool = False,
+                param_dtype=None):
+    """Inputs of ``selective_scan`` at the scales of the Jamba2 Mini cell's
+    mixer (normed B and C, a pre-activation dt of about 2, a dt bias,
+    ``A_log`` and ``D`` of 1, in ``param_dtype``, float32 unless named);
+    with ``wide`` x and z are the halves of one [B, S, 2 din] tensor, as
+    ``mamba_block`` hands over z."""
+    def n(*shape, std=1.0, dt=dtype):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dt)
+    if wide:
+        x, z = n(bsz, s, 2 * din, std=2.0).chunk(2, dim=-1)
+    else:
+        x, z = n(bsz, s, din, std=2.0), n(bsz, s, din, std=2.0)
+    dt, b, c = n(bsz, s, din, std=2.0), n(bsz, s, SCAN_N, std=2.0), n(
+        bsz, s, SCAN_N, std=2.0)
+    pdt = param_dtype or torch.float32
+    a_log, d, bias = (n(din, SCAN_N, dt=pdt), n(din, dt=pdt), n(din, dt=pdt))
+    state = n(bsz, din, SCAN_N, dt=torch.float32) if with_state else None
+    return (x, dt, z, b, c, a_log, d, bias), state
+
+
+def scan_gaps(torch, got, want) -> dict:
+    """The kernel's (y, state) against the plain version's: the largest
+    and mean |difference| of y and the largest of the state, each over
+    the largest |value| of the plain version's."""
+    (y, h), (wy, wh) = got, want
+    torch.cuda.synchronize()
+    dy = (y.float() - wy.float()).abs()
+    top_y = float(wy.float().abs().max())
+    return {"y_max": float(dy.max()) / top_y,
+            "y_mean": float(dy.mean()) / top_y,
+            "state_max": float((h - wh).abs().max())
+            / float(wh.abs().max())}
+
+
+def check_selective_scan(torch) -> int:
+    """``selective_scan`` against its plain version on the card: din not
+    a multiple of a block's 64 channels, S not a multiple of the 32-step
+    chunk, several sequences, x and z as halves of one wider tensor, with
+    and without a carried state, float32 and bfloat16; then the cell's
+    shapes (``SCAN_SHAPES``) in bfloat16."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels import ref
+
+    g = torch.Generator("cuda").manual_seed(11)
+    n_checks = 0
+    cases = [(bsz, s, din, dtype, st, wide)
+             for bsz, s, din in ((1, 1, 64), (3, 45, 100), (2, 130, 256))
+             for dtype in (torch.float32, torch.bfloat16)
+             for st in (False, True) for wide in (False, True)]
+    # the cell's shapes, its parameters in bfloat16 as the benchmark draws
+    # them (the wrapper hands the kernel float32 copies)
+    cases += [(bsz, s, SCAN_DIN, torch.bfloat16, bsz > 1, True)
+              for bsz, s in SCAN_SHAPES]
+    for bsz, s, din, dtype, st, wide in cases:
+        args, state = scan_inputs(
+            torch, g, bsz, s, din, dtype, st, wide,
+            torch.bfloat16 if din == SCAN_DIN else None)
+        before = K.selective_scan.launches
+        gap = scan_gaps(torch, K.selective_scan(*args, state),
+                        ref.selective_scan_ref(*args, state))
+        what = (f"selective_scan B={bsz} S={s} din={din} {dtype} "
+                f"state={st} wide={wide}: {gap}")
+        expect(K.selective_scan.launches == before + 1, f"{what} launched")
+        if dtype == torch.float32:
+            expect(gap["y_max"] <= SCAN_F32_TOL
+                   and gap["state_max"] <= SCAN_F32_TOL, what)
+        else:
+            expect(gap["y_max"] <= SCAN_BF16_TOL
+                   and gap["y_mean"] <= SCAN_Y_MEAN_TOL
+                   and gap["state_max"] <= SCAN_BF16_TOL, what)
+        n_checks += 1
+        del args, state
+    return n_checks
+
+
+def norm_case(torch, g, tokens: int, groups: int, d: int, ld: int, dtype,
+              scale_dtype):
+    """``rmsnorm``'s inputs: x a [tokens, groups, d] view of rows of ``ld``
+    elements (as ``mamba_block`` hands over dt, or B and C), scale
+    [groups, d] (or [d] for one group) near 0."""
+    base = (torch.randn(tokens, ld, generator=g, device="cuda") * 3).to(dtype)
+    x = base[:, ld - groups * d:].unflatten(-1, (groups, d))
+    if groups == 1:
+        x = x[:, 0]
+    shape = (groups, d) if groups > 1 else (d,)
+    scale = (torch.randn(shape, generator=g, device="cuda") * 0.1).to(
+        scale_dtype)
+    return x, scale
+
+
+def check_rmsnorm(torch) -> int:
+    """``rmsnorm`` against its plain version on the card: odd widths and
+    row counts, strided rows, groups, both dtypes of x and of the scale;
+    then the cell's shapes."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels import ref
+
+    g = torch.Generator("cuda").manual_seed(13)
+    n_checks = 0
+    cases = [(t, gr, d, ld) for t, gr, d, ld in
+             ((1, 1, 1, 1), (3, 1, 33, 40), (9, 2, 16, 40), (17, 3, 5, 15))]
+    cases += list(NORM_SHAPES)
+    for t, gr, d, ld in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for sdt in (torch.float32, torch.bfloat16):
+                x, scale = norm_case(torch, g, t, gr, d, ld, dtype, sdt)
+                before = K.rmsnorm.launches
+                got, want = K.rmsnorm(x, scale, 1e-6), ref.rmsnorm_ref(
+                    x, scale, 1e-6)
+                torch.cuda.synchronize()
+                tol = NORM_F32_TOL if dtype == torch.float32 else NORM_BF16_TOL
+                err = float((got.float() - want.float()).abs().max()) / max(
+                    float(want.float().abs().max()), 1e-30)
+                expect(K.rmsnorm.launches == before + 1 and got.shape ==
+                       want.shape and err <= tol,
+                       f"rmsnorm T={t} G={gr} d={d} ld={ld} {dtype} scale "
+                       f"{sdt}: {err}")
+                n_checks += 1
+    return n_checks
+
+
+def norm_timing(torch, flush, cold: dict) -> dict:
+    """``rmsnorm`` at the cell's shapes in bfloat16: its time (events,
+    and cold after an L2 flush), the plain version's, the library's
+    (``F.rms_norm`` with the weight ``1 + scale``, one group only) and
+    the bytes bound (x read and y written at 2 bytes)."""
+    import torch.nn.functional as F
+
+    import repro_torch.kernels as K
+    from repro_torch.kernels import ref
+
+    g = torch.Generator("cuda").manual_seed(14)
+    out = {}
+    for t, gr, d, ld in NORM_SHAPES:
+        x, scale = norm_case(torch, g, t, gr, d, ld, torch.bfloat16,
+                             torch.bfloat16)
+        key = f"rmsnorm {t}x{gr}x{d}"
+
+        def call():
+            return K.rmsnorm(x, scale, 1e-6)
+        cold[key] = cold_ms(torch, call, flush)
+        nbytes = 2 * t * gr * d * 2
+        out[f"{t}x{gr}x{d}"] = {
+            "ms": median_ms(torch, call), "cold_ms": cold[key],
+            "plain_ms": median_ms(torch, lambda: ref.rmsnorm_ref(
+                x, scale, 1e-6), reps=5),
+            "bound_ms": bound(nbytes, 0)[0], "bytes": nbytes,
+            "max_abs_err": max_abs_err(torch, call().float(),
+                                       ref.rmsnorm_ref(x, scale,
+                                                       1e-6).float())}
+        if gr == 1:
+            w = (1 + scale.float()).to(x.dtype)
+            out[f"{t}x{gr}x{d}"]["library_ms"] = median_ms(
+                torch, lambda: F.rms_norm(x, (d,), w, 1e-6))
+    return out
+
+
+def scan_timing(torch, flush, cold: dict) -> dict:
+    """``selective_scan`` at the cell's shapes in bfloat16: its time
+    (events, and cold after an L2 flush), the plain version's, the bytes
+    bound (x, dt, z read and y written at 2 bytes, B and C at 2, the
+    float32 state written and read where it comes in) and the largest
+    gaps from the plain version."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels import ref
+
+    g = torch.Generator("cuda").manual_seed(12)
+    out = {}
+    for bsz, s in SCAN_SHAPES:
+        args, state = scan_inputs(torch, g, bsz, s, SCAN_DIN, torch.bfloat16,
+                                  bsz > 1, wide=True,
+                                  param_dtype=torch.bfloat16)
+        key = f"selective_scan {bsz}x{s}"
+
+        def call():
+            return K.selective_scan(*args, state)
+        cold[key] = cold_ms(torch, call, flush)
+        nbytes = (bsz * s * (4 * SCAN_DIN + 2 * SCAN_N) * 2
+                  + bsz * SCAN_DIN * SCAN_N * 4 * (1 + (state is not None)))
+        out[f"{bsz}x{s}"] = {
+            "ms": median_ms(torch, call), "cold_ms": cold[key],
+            "plain_ms": median_ms(torch, lambda: ref.selective_scan_ref(
+                *args, state), reps=3),
+            "bound_ms": bound(nbytes, 0)[0], "bytes": nbytes,
+            "gaps": scan_gaps(torch, call(),
+                              ref.selective_scan_ref(*args, state))}
+        del args, state
+    return out
 
 
 def card_line() -> str:
@@ -977,7 +1200,7 @@ def check_kernels(torch) -> int:
         agree(same_bits(torch, ops.sample_threshold_mask(x, tau),
                         ref.minp_mask_ref(xt, tt)),
               f"sample_threshold_mask {b}x{v} on NumPy input")
-    return n_checks
+    return n_checks + check_selective_scan(torch) + check_rmsnorm(torch)
 
 
 # --------------------------------------------------------------------- #
@@ -1812,7 +2035,8 @@ def run_training_path(torch, report) -> dict:
     profiled), then the restart through ``run_training`` at
     ``TRAIN_RESTART_LAYERS``: 6 steps uninterrupted, against 3 steps, a
     checkpoint and a fresh resumed run to step 6.  Returns the launch
-    counts of our kernels over the training (none is on the path)."""
+    counts of our kernels over the training (only ``rmsnorm`` is on a
+    train step's path)."""
     import shutil
     import tempfile
 
@@ -4223,6 +4447,31 @@ def measure(torch, table_ex, gbdt_ex, X, addrs, lm_logits, lm_tau, launches,
                                         "empty_launch_cold_ms")}},
           library_ms=main_path["library_ms"],
           cold_key=f"minp_mask {LM_SLOTS}x{v}")
+
+    # selective_scan: the Jamba2 Mini cell's batch-1 prefill of 4,999
+    # tokens (the row) and decode step of 128 slots (report)
+    scan = report["selective_scan"] = scan_timing(torch, flush, cold)
+    pre = scan[f"{SCAN_SHAPES[0][0]}x{SCAN_SHAPES[0][1]}"]
+    rows.append({"name": "selective_scan", "route": "cuda",
+                 "source": KERNEL_META["selective_scan"][0],
+                 "replaces": KERNEL_META["selective_scan"][1],
+                 "launches": launches["selective_scan"],
+                 "max_abs_err": pre["gaps"]["y_max"], "ms": pre["ms"],
+                 "cold_ms": pre["cold_ms"], "plain_ms": pre["plain_ms"],
+                 "bound_ms": pre["bound_ms"], "bound_by": "bytes",
+                 "library_ms": None})
+
+    # rmsnorm: the cell's prefill rows (the row) and its other shapes
+    norms = report["rmsnorm"] = norm_timing(torch, flush, cold)
+    row = norms["4999x1x4096"]
+    rows.append({"name": "rmsnorm", "route": "cuda",
+                 "source": KERNEL_META["rmsnorm"][0],
+                 "replaces": KERNEL_META["rmsnorm"][1],
+                 "launches": launches["rmsnorm"],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "cold_ms": row["cold_ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": "bytes",
+                 "library_ms": row["library_ms"]})
     return rows
 
 
@@ -4286,7 +4535,7 @@ def run_phases(torch, report: dict, t0: float, card: str) -> int:
     del lm_logits, lm_tau
     free(torch)
     tlaunches = run_training_path(torch, report)
-    expect(not any(tlaunches.values()),
+    expect(not any(v for k, v in tlaunches.items() if k != "rmsnorm"),
            f"training launched kernels of ours: {tlaunches}")
     log(f"phase 9: training ok {json.dumps(report['train'])}")
     free(torch)

@@ -4,7 +4,12 @@ Every assigned architecture is one frozen ``ModelConfig`` in its own file
 under ``repro_torch/configs``; ``repro_torch.configs.registry`` maps
 ``--arch`` ids to them.  ``reduced()`` returns the same family at
 smoke-test scale.  The configs are pure data, equal field for field to the
-reference's, so one arch id names the same model in both packages.
+reference's, so one arch id names the same model in both packages; the
+fields and values marked "port only" express models the reference
+cannot (a configuration outside the registry sets them) and hold their
+defaults in every registry entry.  The port reads a field only it has
+with ``getattr`` and its default, as the tests hand the port the
+reference's config objects.
 
 Layer structure is expressed as a repeating *period*: ``block_pattern`` is
 the tuple of block kinds inside one period (e.g. gemma2 ``("local",
@@ -27,8 +32,14 @@ class MoEConfig:
     # which in-period block indices use MoE MLPs (None => all)
     moe_layers: tuple[int, ...] | None = None
     # expert-queue capacity = tokens*top_k/num_experts * this factor;
-    # capacity_factor == num_experts is the exact no-drop setting
-    capacity_factor: float = 1.25
+    # capacity_factor == num_experts is the exact no-drop setting.
+    # None (port only): no capacity, each expert's products run over
+    # the rows routed to it, none dropped and none padded
+    capacity_factor: float | None = 1.25
+    # (port only) True: softmax over the top_k logits (Mixtral's gate);
+    # False: softmax over every expert, its top_k probabilities kept as
+    # they are (Jamba's)
+    renormalize: bool = True
 
 
 @dataclass(frozen=True)
@@ -53,11 +64,16 @@ class ModelConfig:
     ssm_d_state: int = 16
     ssm_d_conv: int = 4
     ssm_expand: int = 2
+    # (port only) RMSNorms with learnt scales on the mamba mixer's dt,
+    # B and C (Jamba's dt_layernorm, b_layernorm, c_layernorm)
+    ssm_dt_bc_norm: bool = False
     rwkv_head_dim: int = 64
     frontend: str | None = None     # vision_stub | audio_stub
     enc_dec: bool = False
     enc_layers: int = 0
-    rope_theta: float = 10000.0
+    # None (port only): no positional encoding, attention sees positions
+    # through its causal mask alone (Jamba)
+    rope_theta: float | None = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     # distribution / numerics knobs (overridable per arch)

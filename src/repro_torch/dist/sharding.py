@@ -258,6 +258,17 @@ def gather_dp(tree):
     return tree.redistribute(tree.device_mesh, pl)
 
 
+def spec_of(x) -> P:
+    """The spec of DTensor ``x``'s layout: each dimension's entry the
+    mesh axes that shard it, in mesh order (a pending sum reads as
+    replicated)."""
+    entries: list[list[str]] = [[] for _ in range(x.dim())]
+    for name, pl in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if pl.is_shard():
+            entries[pl.dim % x.dim()].append(name)
+    return P(*entries)
+
+
 def mesh_of(*tensors):
     """The mesh of the first DTensor among ``tensors``, or None."""
     for t in tensors:

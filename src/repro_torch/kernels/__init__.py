@@ -19,6 +19,8 @@ from .fused_query import (
 )
 from .leaf_gather import leaf_gather
 from .minp_mask import minp_mask
+from .rmsnorm import rmsnorm
+from .selective_scan import selective_scan
 from .temporal_encode import temporal_encode
 
 #: every kernel wrapper, by name
@@ -34,6 +36,8 @@ KERNELS = {
     "bitserial_cmp": bitserial_cmp,
     "leaf_gather": leaf_gather,
     "minp_mask": minp_mask,
+    "selective_scan": selective_scan,
+    "rmsnorm": rmsnorm,
 }
 
 

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C entry points per source, with their argument types (every pointer
 #: and the stream as ``c_void_p``, so no pointer is cut to 32 bits).
 SIGNATURES = {
@@ -55,6 +56,13 @@ SIGNATURES = {
     },
     "minp_mask": {
         "minp_mask_launch": [_P, _P, _I, _I, _F, _P, _P],
+    },
+    "rmsnorm": {
+        "rmsnorm_launch": [_P, _P, _P, _L, _L, _I, _I, _F, _I, _I, _P],
+    },
+    "selective_scan": {
+        "selective_scan_launch": [_P] * 5 + [_L] * 5 + [_P] * 6
+        + [_I] * 5 + [_P],
     },
 }
 

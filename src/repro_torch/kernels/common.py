@@ -67,6 +67,51 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
+def with_plain_grad(launch, plain, *args):
+    """``launch(*args)``, a kernel's wrapper; where autograd wants a
+    gradient through it, the gradient of ``plain(*args)``, its plain
+    version, recomputed from the inputs in the backward pass (the
+    kernels have no backward of their own).  ``args`` may hold tensors,
+    None and numbers."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return _PlainGrad.apply(launch, plain, *args)
+    return launch(*args)
+
+
+class _PlainGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, launch, plain, *args):
+        ctx.plain = plain
+        ctx.where = [i for i, a in enumerate(args)
+                     if isinstance(a, torch.Tensor)]
+        ctx.rest = [None if isinstance(a, torch.Tensor) else a for a in args]
+        ctx.save_for_backward(*(args[i] for i in ctx.where))
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = list(ctx.rest)
+        wanted = []
+        with torch.enable_grad():
+            for i, t in zip(ctx.where, ctx.saved_tensors):
+                need = ctx.needs_input_grad[2 + i]
+                args[i] = t.detach().requires_grad_(need)
+                if need:
+                    wanted.append(i)
+            outs = ctx.plain(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  [args[i] for i in wanted],
+                                  [g for _, g in pairs], allow_unused=True)
+        out = [None] * (2 + len(args))
+        for i, g in zip(wanted, got):
+            out[2 + i] = g
+        return tuple(out)
+
+
 # --------------------------- wrapper inputs --------------------------- #
 
 def index_tensor(idx, n_rows: int, device: torch.device) -> torch.Tensor:

@@ -271,3 +271,63 @@ def minp_mask_float_ref(logits: torch.Tensor, tau: torch.Tensor
     a logit -0.0 against tau +0.0 (kept here) and a logit +NaN (dropped
     here)."""
     return torch.where(logits >= tau[:, None], logits, MINP_FILL)
+
+
+def mamba_scan_ref(da: torch.Tensor, dbx: torch.Tensor, c: torch.Tensor,
+                   h: torch.Tensor | None):
+    """The selective scan's recurrence, one time step after another:
+    ``h_t = da_t * h_{t-1} + dbx_t``, ``y_t = h_t . C_t``, over ``da`` /
+    ``dbx`` [B, S, din, N] and ``c`` [B, S, N] float32 from ``h`` [B,
+    din, N] (zeros if None).  Returns (y [B, S, din] float32, final h)."""
+    from repro_torch.models.loops import repeat
+
+    b, s, din, n = da.shape
+    if h is None:
+        h = da.new_zeros((b, din, n))
+
+    def step(t):
+        nonlocal h
+        h = da[:, t] * h + dbx[:, t]                   # [B, din, N]
+        return torch.einsum("bdn,bn->bd", h, c[:, t])
+
+    return torch.stack(repeat(s, step), dim=1), h
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, a_log: torch.Tensor,
+                       d: torch.Tensor, dt_bias: torch.Tensor,
+                       state: torch.Tensor | None = None):
+    """Mamba-1's selective scan as :func:`repro_torch.models.ssm.
+    mamba_block` computes it on the host: ``x`` (the convolved input),
+    ``dt`` (the step's pre-activation, before its bias) and ``z`` (the
+    gate) [B, S, din] and ``b``, ``c`` [B, S, N] in the activations'
+    dtype; ``a_log`` [din, N], ``d`` and ``dt_bias`` [din]; ``state``
+    [B, din, N] float32 or None (zeros).
+
+        delta = softplus(dt + dt_bias)   (in x's dtype, then float32)
+        h_t   = exp(delta_t A) h_{t-1} + delta_t x_t B_t,  A = -exp(a_log)
+        y_t   = (h_t . C_t + D x_t) silu(z_t)
+
+    The recurrence runs in float32 over ``[B, S, din, N]`` tensors of
+    ``exp(delta A)`` and ``delta x B`` (:func:`mamba_scan_ref`); its
+    output is rounded to x's dtype before the ``D`` term and the gate,
+    which run in that dtype.  Returns (y [B, S, din] in x's dtype, the
+    final state [B, din, N] float32)."""
+    delta = torch.nn.functional.softplus(dt + dt_bias.to(x.dtype)).float()
+    a = -torch.exp(a_log.float())                      # [din, N]
+    da = torch.exp(delta[..., None] * a)               # [B, S, din, N]
+    dbx = (delta * x.float())[..., None] * b.float()[:, :, None, :]
+    y, h = mamba_scan_ref(da, dbx, c.float(), state)
+    y = y.to(x.dtype) + x * d.to(x.dtype)
+    return y * torch.nn.functional.silu(z), h
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float
+                ) -> torch.Tensor:
+    """The port's RMS norm: ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``
+    over the last axis in float32, rounded to x's dtype; ``scale``
+    broadcasts against x's trailing axes."""
+    dt = x.dtype
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * (1.0 + scale.float())).to(dt)

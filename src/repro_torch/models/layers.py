@@ -1,6 +1,6 @@
 """Transformer building blocks: norms, RoPE, GQA attention (sliding
 window / softcap / bias variants, cross and bidirectional), the MLP
-variants and capacity-based MoE.
+variants and the MoE (capacity-based, or dropless).
 
 Counterpart of the reference package's ``models/layers.py``, in plain
 tensor functions over explicit parameter dicts, with the same layouts:
@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rmsnorm import rmsnorm as kernel_rmsnorm
 from repro_torch.dist.sharding import (
     P,
     batch_spec,
@@ -59,6 +60,7 @@ from repro_torch.dist.sharding import (
     known_axes,
     mesh_of,
     run_local,
+    spec_of,
     split_dim,
 )
 
@@ -108,10 +110,16 @@ def rmsnorm_specs(cfg: ModelConfig) -> Params:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    dt = x.dtype
-    x32 = x.float()
-    x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
-    return (x32 * (1.0 + p["scale"].float())).to(dt)
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last axis,
+    in float32, rounded to x's dtype: the ``rmsnorm`` kernel (its plain
+    version off the card).  On a mesh each rank norms its own rows, the
+    last axis whole."""
+    scale = p["scale"]
+    if mesh_of(x) is None:
+        return kernel_rmsnorm(x, scale, eps)
+    spec = P(*spec_of(x)[:-1], None)
+    return run_local(functools.partial(kernel_rmsnorm, eps=eps),
+                     (x, scale), (spec, P()), (spec,))
 
 
 # ----------------------------- RoPE ----------------------------------- #
@@ -209,14 +217,15 @@ def project_kv(cfg: ModelConfig, p: Params, x: torch.Tensor,
                positions: torch.Tensor | None, rope_keys: bool = True
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """K/V projections in flat cache layout [B, S, KV*dh], RoPE applied
-    to the keys unless ``rope_keys`` is False."""
+    to the keys unless ``rope_keys`` is False or the model has no
+    positional encoding (``cfg.rope_theta`` None)."""
     kv, dh = cfg.n_kv_heads, cfg.d_head
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
     if "bk" in p:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    if rope_keys:
+    if rope_keys and cfg.rope_theta is not None:
         kh = split_dim(k, -1, (kv, dh))
         k = rope(kh, positions, cfg.rope_theta).reshape(k.shape)
     return k, v
@@ -304,7 +313,8 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     are given, they are flat [B, Sk, KV*dh] projections already computed
     (:func:`project_kv` of ``x``, or an encoder's cross K/V); otherwise
     self-attention projects them from x.  ``cross=True`` => no mask, no
-    RoPE (cross-attention, and the bidirectional encoder).  With
+    RoPE (cross-attention, and the bidirectional encoder); with
+    ``cfg.rope_theta`` None no RoPE anywhere (positions only mask).  With
     ``attn_q_chunk`` (and S > chunk, not cross) the queries go in blocks
     ``[i, hi)``, each against the keys ``[k_lo, hi)`` of its causal and
     window horizon."""
@@ -313,7 +323,7 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     q = split_dim(q, -1, (h, dh))
-    if not cross:
+    if not cross and cfg.rope_theta is not None:
         q = rope(q, q_pos, cfg.rope_theta)
     if k is None:
         k, v = project_kv(cfg, p, x, q_pos, rope_keys=not cross)
@@ -339,13 +349,15 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def project_qkv_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                        pos: int):
     """Decode-step projections: q [B,1,H,dh] and flat k/v [B,1,KV*dh],
-    RoPE applied at ``pos``."""
+    RoPE applied at ``pos`` (unless ``cfg.rope_theta`` is None)."""
     h, dh = cfg.n_heads, cfg.d_head
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    q = rope(split_dim(q, -1, (h, dh)), posv, cfg.rope_theta)
+    q = split_dim(q, -1, (h, dh))
+    if cfg.rope_theta is not None:
+        q = rope(q, posv, cfg.rope_theta)
     k1, v1 = project_kv(cfg, p, x, posv)
     return q, k1, v1
 
@@ -460,6 +472,21 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def moe_gates(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The router's choice for tokens ``xf`` [N, D]: (gates [N, K]
+    float32, experts [N, K]) from the float32 logits ``xf @ router``.
+    With ``renormalize`` (Mixtral's gate) the top_k logits and the
+    softmax over those k; without (Jamba's) the softmax over every
+    expert and its top_k probabilities as they are, not summing to 1."""
+    k = cfg.moe.top_k
+    logits = xf.float() @ router.float()                       # [N, E]
+    if not getattr(cfg.moe, "renormalize", True):
+        return top_k(torch.softmax(logits, dim=-1), k)
+    gate_vals, gate_idx = top_k(logits, k)                     # [N, K]
+    return torch.softmax(gate_vals, dim=-1), gate_idx
+
+
 def moe_dispatch(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor,
                  capacity_factor: float):
     """The routing of :func:`moe` for tokens ``xf`` [N, D]: (gates
@@ -469,9 +496,7 @@ def moe_dispatch(cfg: ModelConfig, router: torch.Tensor, xf: torch.Tensor,
     assignments in token order."""
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     n = xf.shape[0]
-    logits = xf.float() @ router                               # [N, E]
-    gate_vals, gate_idx = top_k(logits, k)                     # [N, K]
-    gates = torch.softmax(gate_vals, dim=-1)
+    gates, gate_idx = moe_gates(cfg, router, xf)               # [N, K]
     cap = max(min(int(math.ceil(n * k / e * capacity_factor)), n * k), 8)
     flat_e = gate_idx.reshape(-1)                              # [N*K]
     nk = flat_e.shape[0]
@@ -510,10 +535,15 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     reference's GSPMD: a shard-local dispatch would drop other tokens.
     The expert products run on the distributed weights; under
     ``moe_dp_sharding`` the buffer is constrained to
-    ``P(None, "data", "model")`` first."""
+    ``P(None, "data", "model")`` first.
+
+    ``capacity_factor`` None takes the configuration's; a configuration
+    with none routes through :func:`moe_dropless`."""
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     if capacity_factor is None:
         capacity_factor = cfg.moe.capacity_factor
+    if capacity_factor is None:
+        return moe_dropless(cfg, p, x)
     b, s, d = x.shape
     n = b * s
     xf = full(x).reshape(n, d)
@@ -542,6 +572,37 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     pl = [Replicate() if q.is_partial() else q for q in x.placements]
     return _replicated_like(y, x).redistribute(x.device_mesh, pl)
+
+
+def moe_dropless(cfg: ModelConfig, p: Params, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Top-k routing with no capacity: every assignment is computed and
+    no expert computes a row routed elsewhere.  The N*K assignments are
+    sorted by expert (token order within one), each expert's three
+    products run over its own rows (``torch._grouped_mm``, whose
+    offsets are the experts' row ends, computed on the device: no host
+    sync), and the outputs, put back in (token, k) order, are combined
+    as :func:`moe` combines them.  Plain tensors only."""
+    if is_dtensor(x):
+        raise NotImplementedError("the dropless MoE takes plain tensors")
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gates, idx = moe_gates(cfg, p["router"], xf)
+    flat_e = idx.reshape(-1)                                   # [N*K]
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device
+                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    rows = xf[order // k]                                      # [N*K, D]
+    hin = torch._grouped_mm(rows, p["w_in"].to(x.dtype), offs=ends)
+    hg = torch._grouped_mm(rows, p["w_gate"].to(x.dtype), offs=ends)
+    out = torch._grouped_mm(F.silu(hg) * hin, p["w_out"].to(x.dtype),
+                            offs=ends)
+    tok_out = torch.empty_like(out)
+    tok_out[order] = out
+    tok_out = tok_out.reshape(b * s, k, d) * gates[..., None].to(x.dtype)
+    return tok_out.sum(dim=1).reshape(b, s, d)
 
 
 # --------------------------- embeddings -------------------------------- #

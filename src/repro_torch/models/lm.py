@@ -31,6 +31,7 @@ replicated.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -45,6 +46,7 @@ from repro_torch.dist.sharding import (
     is_dtensor,
 )
 from repro_torch.kernels.common import resolve_device
+from repro_torch.tracing import span
 
 from . import layers as L
 from . import ssm as S
@@ -60,6 +62,16 @@ BATCH_SPEC = P(DP_AXES, None, None)
 #: logits [B, S, V] on a mesh: the batch over the data-parallel axes,
 #: the vocab over "model" (the loss reduces over it in place)
 LOGITS_SPEC = P(DP_AXES, None, "model")
+#: the tracing spans of :func:`prefill` and :func:`period_decode`: a
+#: block's attention or mamba mixer, and an MoE FFN (under a profiler
+#: only, :func:`repro_torch.tracing.span`)
+SPANS = {"attn": "lm.attn", "local": "lm.attn", "global": "lm.attn",
+         "mamba": "lm.mamba", "moe": "lm.moe"}
+
+
+def _span(key: str | None):
+    name = SPANS.get(key)
+    return span(name) if name else contextlib.nullcontext()
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> int | None:
@@ -505,24 +517,26 @@ def period_decode(cfg: ModelConfig, pparams: Params, pcache: Params,
         p, c = pparams[f"block{j}"], pcache[f"block{j}"]
         x = constrain(x, BATCH_SPEC)
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if kind in ATTN_KINDS:
-            y, _, _, _ = L.attention_decode(
-                cfg, p["attn"], h, c["k"], c["v"], pos,
-                window=_window_for(cfg, kind), kpos=c.get("kpos"))
-        elif kind == "mamba":
-            y, ssm, conv = S.mamba_block(cfg, p["mamba"], h,
-                                         ssm_state=c["ssm"],
-                                         conv_state=c["conv"])
-            c["ssm"].copy_(ssm)
-            c["conv"].copy_(conv)
-        elif kind == "rwkv":
-            y, st, xl = S.rwkv_time_mix(cfg, p["rwkv"], h,
-                                        state=c["state"],
-                                        x_last=c["x_tm"])
-            c["state"].copy_(st)
-            c["x_tm"].copy_(xl)
+        with _span(kind):
+            if kind in ATTN_KINDS:
+                y, _, _, _ = L.attention_decode(
+                    cfg, p["attn"], h, c["k"], c["v"], pos,
+                    window=_window_for(cfg, kind), kpos=c.get("kpos"))
+            elif kind == "mamba":
+                y, ssm, conv = S.mamba_block(cfg, p["mamba"], h,
+                                             ssm_state=c["ssm"],
+                                             conv_state=c["conv"])
+                c["ssm"].copy_(ssm)
+                c["conv"].copy_(conv)
+            elif kind == "rwkv":
+                y, st, xl = S.rwkv_time_mix(cfg, p["rwkv"], h,
+                                            state=c["state"],
+                                            x_last=c["x_tm"])
+                c["state"].copy_(st)
+                c["x_tm"].copy_(xl)
         x = _cross(cfg, p, x + y, posv, ckv)
-        x, xl2 = _ffn(cfg, kind, p, x, x_last=c.get("x_cm"))
+        with _span("moe" if "moe" in p else None):
+            x, xl2 = _ffn(cfg, kind, p, x, x_last=c.get("x_cm"))
         if xl2 is not None:
             c["x_cm"].copy_(xl2)
     return x
@@ -539,9 +553,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Params,
     states.  An encoder-decoder's cross K/V are not part of the cache:
     :func:`decode_step` takes them as ``cross``."""
     x, cross = _inputs(cfg, params, batch)
-    b, s = x.shape[0], x.shape[1]
-    dev = x.device
-    positions = torch.arange(s, device=dev)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
     total = max_len or s
     caches = []
     for i in range(cfg.num_periods):
@@ -552,40 +565,46 @@ def prefill(cfg: ModelConfig, params: Params, batch: Params,
             p = pp[f"block{j}"]
             x = constrain(x, BATCH_SPEC)
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-            if kind in ATTN_KINDS:
-                win = _window_for(cfg, kind)
-                kc, vc = L.project_kv(cfg, p["attn"], h, positions)
-                # the same K/V the reference projects a second time
-                # inside attention: the values are equal, the work is
-                # done once
-                out = L.attention(cfg, p["attn"], h, positions, k=kc, v=vc,
-                                  window=win)
-                if win is not None:
-                    clen = min(win, total)
-                    kept = torch.arange(max(0, s - clen), s, device=dev)
-                    slots = kept % clen
-                    kz = kc.new_zeros((b, clen, kc.shape[2]))
-                    vz = vc.new_zeros((b, clen, vc.shape[2]))
-                    kz[:, slots], vz[:, slots] = kc[:, kept], vc[:, kept]
-                    kpos = torch.full((clen,), -(1 << 30), dtype=torch.int32,
-                                      device=dev)
-                    kpos[slots] = kept.to(torch.int32)
-                    pc = {"k": kz, "v": vz, "kpos": kpos}
-                else:
-                    if total > s:
-                        kc = torch.nn.functional.pad(kc, (0, 0, 0, total - s))
-                        vc = torch.nn.functional.pad(vc, (0, 0, 0, total - s))
-                    pc = {"k": kc, "v": vc}
-            elif kind == "mamba":
-                out, ssm, conv = S.mamba_block(cfg, p["mamba"], h)
-                pc = {"ssm": ssm, "conv": conv}
-            elif kind == "rwkv":
-                out, st, xl = S.rwkv_time_mix(cfg, p["rwkv"], h)
-                pc = {"state": st, "x_tm": xl}
+            with _span(kind):
+                out, pc = _prefill_mixer(cfg, kind, p, h, positions, total)
             x = _cross(cfg, p, x + out, positions, ckv)
-            x, xl2 = _ffn(cfg, kind, p, x)
+            with _span("moe" if "moe" in p else None):
+                x, xl2 = _ffn(cfg, kind, p, x)
             if xl2 is not None:
                 pc["x_cm"] = xl2
             pcache[f"block{j}"] = pc
         caches.append(pcache)
     return _head(cfg, params, x[:, -1:]), _stack(caches)
+
+
+def _prefill_mixer(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+                   positions: torch.Tensor, total: int
+                   ) -> tuple[torch.Tensor, Params]:
+    """One block's mixer over the prompt in :func:`prefill`: (its
+    output, the block's cache built for ``total`` positions)."""
+    b, s, dev = h.shape[0], h.shape[1], h.device
+    if kind == "mamba":
+        out, ssm, conv = S.mamba_block(cfg, p["mamba"], h)
+        return out, {"ssm": ssm, "conv": conv}
+    if kind == "rwkv":
+        out, st, xl = S.rwkv_time_mix(cfg, p["rwkv"], h)
+        return out, {"state": st, "x_tm": xl}
+    win = _window_for(cfg, kind)
+    kc, vc = L.project_kv(cfg, p["attn"], h, positions)
+    # the same K/V the reference projects a second time inside
+    # attention: the values are equal, the work is done once
+    out = L.attention(cfg, p["attn"], h, positions, k=kc, v=vc, window=win)
+    if win is None:
+        if total > s:
+            kc = torch.nn.functional.pad(kc, (0, 0, 0, total - s))
+            vc = torch.nn.functional.pad(vc, (0, 0, 0, total - s))
+        return out, {"k": kc, "v": vc}
+    clen = min(win, total)
+    kept = torch.arange(max(0, s - clen), s, device=dev)
+    slots = kept % clen
+    kz = kc.new_zeros((b, clen, kc.shape[2]))
+    vz = vc.new_zeros((b, clen, vc.shape[2]))
+    kz[:, slots], vz[:, slots] = kc[:, kept], vc[:, kept]
+    kpos = torch.full((clen,), -(1 << 30), dtype=torch.int32, device=dev)
+    kpos[slots] = kept.to(torch.int32)
+    return out, {"k": kz, "v": vz, "kpos": kpos}

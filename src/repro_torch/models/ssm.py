@@ -11,6 +11,9 @@ RWKV-6 time-mix (per head, d = head dim):
 with data-dependent decay w_t = exp(-exp(lora_w(x_t))).
 
 Mamba (S6): h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t;  y = C_t h + D x.
+On CUDA tensors the scan is the ``selective_scan`` kernel
+(:mod:`repro_torch.kernels.selective_scan`), one pass over time that
+never builds the [B, S, din, N] tensors; on the host, its plain version.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.selective_scan import selective_scan
 
 from repro_torch.dist.sharding import (
     DP_AXES,
@@ -35,7 +39,7 @@ from repro_torch.dist.sharding import (
     split_dim,
 )
 
-from .layers import _normal, pdtype
+from .layers import _normal, pdtype, rmsnorm
 from .loops import repeat
 
 Params = dict[str, Any]
@@ -205,6 +209,10 @@ def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 # -------------------------------- Mamba -------------------------------- #
 
+#: the scales of the mixer's dt, B and C norms (``cfg.ssm_dt_bc_norm``)
+DT_BC_NORMS = ("dt_norm", "b_norm", "c_norm")
+
+
 def mamba_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
                lead: tuple[int, ...] = ()) -> Params:
     d, din, n = cfg.d_model, cfg.d_inner_ssm, cfg.ssm_d_state
@@ -212,7 +220,7 @@ def mamba_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
     dt = pdtype(cfg)
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
                                    device=device))
-    return {
+    p = {
         "in_proj": _normal((d, 2 * din), 1.0 / math.sqrt(d), cfg, gen,
                            device, lead),
         "conv_w": _normal((cfg.ssm_d_conv, din), 0.3, cfg, gen, device,
@@ -228,10 +236,14 @@ def mamba_init(cfg: ModelConfig, gen: torch.Generator, device: torch.device,
         "out_proj": _normal((din, d), 1.0 / math.sqrt(din), cfg, gen,
                             device, lead),
     }
+    if getattr(cfg, "ssm_dt_bc_norm", False):
+        for name, width in zip(DT_BC_NORMS, (dtr, n, n)):
+            p[name] = _full(lead, (width,), 1.0, dt, device)
+    return p
 
 
 def mamba_specs(cfg: ModelConfig) -> Params:
-    return {
+    p = {
         "in_proj": P("data", "model"),
         "conv_w": P(None, "model"),
         "conv_b": P("model"),
@@ -242,6 +254,9 @@ def mamba_specs(cfg: ModelConfig) -> Params:
         "D": P("model"),
         "out_proj": P("model", "data"),
     }
+    if getattr(cfg, "ssm_dt_bc_norm", False):
+        p.update(dict.fromkeys(DT_BC_NORMS, P(None)))
+    return p
 
 
 def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -249,7 +264,11 @@ def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 conv_state: torch.Tensor | None = None):
     """x: [B, S, D].  For decode, pass the states ([B, din, N] float32
     and [B, dconv-1, din]) and S == 1.  Returns (y, ssm_state,
-    conv_state); the inputs are not written."""
+    conv_state); the inputs are not written.  With
+    ``cfg.ssm_dt_bc_norm`` the projected dt, B and C are RMS-normalised
+    (:func:`~repro_torch.models.layers.rmsnorm`, scales ``dt_norm``,
+    ``b_norm``, ``c_norm``, eps ``norm_eps``) before dt's projection
+    and the scan."""
     b, s, d = x.shape
     din, n, dconv = cfg.d_inner_ssm, cfg.ssm_d_state, cfg.ssm_d_conv
     xz = x @ p["in_proj"].to(x.dtype)
@@ -266,44 +285,30 @@ def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # row-parallel on a mesh: the small projection is summed whole
     proj = constrain(xc @ p["x_proj"].to(x.dtype), P(DP_AXES, None, None))
     dtr = proj.shape[-1] - 2 * n
-    dt, bmat, cmat = torch.split(proj, [dtr, n, n], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"].to(x.dtype)
-                    + p["dt_bias"].to(x.dtype)).float()
-    a = -torch.exp(p["A_log"])                         # [din, N]
-    da = torch.exp(dt[..., None] * a)                  # [B, S, din, N]
-    dbx = (dt * xc.float())[..., None] * bmat.float()[:, :, None, :]
-    cf = cmat.float()
-    mesh = mesh_of(da, dbx, cf, ssm_state)
+    if getattr(cfg, "ssm_dt_bc_norm", False):
+        dt = rmsnorm({"scale": p["dt_norm"]}, proj[..., :dtr], cfg.norm_eps)
+        # B and C side by side as [..., 2, N]: each over its own N, in
+        # one norm's launch
+        bc = rmsnorm({"scale": torch.stack([p["b_norm"], p["c_norm"]])},
+                     proj[..., dtr:].unflatten(-1, (2, n)), cfg.norm_eps)
+        bmat, cmat = bc.unbind(-2)
+    else:
+        dt, bmat, cmat = torch.split(proj, [dtr, n, n], dim=-1)
+    dt = dt @ p["dt_proj"].to(x.dtype)
+    args = (xc, dt, z, bmat, cmat, p["A_log"], p["D"], p["dt_bias"],
+            ssm_state)
+    mesh = mesh_of(*args)
     if mesh is None:
-        y, h = _mamba_scan(da, dbx, cf, ssm_state)
+        y, h = selective_scan(*args)
     else:
         # each rank its sequences' channels: batch over "data", d_inner
         # over "model" where it divides
-        spec = head_spec(mesh, (b, s, din, n), 2)
-        h_spec = P(spec[0], spec[2], None)
-        y, h = run_local(_mamba_scan, (da, dbx, cf, ssm_state),
-                         (spec, spec, P(spec[0], None, None), h_spec),
-                         (P(spec[0], None, spec[2]), h_spec))
-    y = y.to(x.dtype)                                  # [B, S, din]
-    y = y + xc * p["D"].to(x.dtype)
-    y = y * F.silu(z)
+        spec = head_spec(mesh, (b, s, din), 2)
+        bc, h_spec = P(spec[0], None, None), P(spec[0], spec[2], None)
+        y, h = run_local(selective_scan, args,
+                         (spec, spec, spec, bc, bc, P(spec[2], None),
+                          P(spec[2]), P(spec[2]), h_spec), (spec, h_spec))
     return y @ p["out_proj"].to(x.dtype), h, new_conv_state
-
-
-def _mamba_scan(da, dbx, cf, h):
-    """The selective scan: h_t = da_t * h_{t-1} + dbx_t, y_t = h_t . C_t,
-    over da/dbx [B, S, din, N] and C [B, S, N] float32 from ``h`` (zeros
-    if None).  Returns (y [B, S, din] float32, final h [B, din, N])."""
-    b, s, din, n = da.shape
-    if h is None:
-        h = da.new_zeros((b, din, n))
-
-    def step(t):
-        nonlocal h
-        h = da[:, t] * h + dbx[:, t]                   # [B, din, N]
-        return torch.einsum("bdn,bn->bd", h, cf[:, t])
-
-    return torch.stack(repeat(s, step), dim=1), h
 
 
 # ------------------- chunked-parallel RWKV-6 (GLA form) ------------------- #

@@ -8,7 +8,6 @@ meta-device tree (no weight allocated) against the reference's
 arithmetic equal.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -21,6 +20,8 @@ from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import roofline as R
 from repro_torch.train.tree import flatten
+
+from _torch_config_util import assert_same_fields
 
 
 def _reference_dryrun():
@@ -78,8 +79,7 @@ def test_apply_variant_equals_the_reference_for_every_shape(arch):
                                   SHAPES[shape] if shape else None)
             want = JD.apply_variant(jget_config(arch), variant,
                                     JD.SHAPES[shape] if shape else None)
-            assert dataclasses.asdict(got) == dataclasses.asdict(want), \
-                (arch, shape, variant)
+            assert_same_fields(got, want)
     assert D.OPT_NOTES == JD.OPT_NOTES
 
 
